@@ -1,0 +1,64 @@
+"""Modem base class and factory registry (``cubicsdr_tpu/modems/base.py``;
+ref: src/modules/modem/Modem.h:129-153, Modem.cpp:40-73).
+
+A modem *builds* a kit: a StreamOp that turns IQ blocks at the modem
+bandwidth into audio blocks at the audio rate.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from cubicsdr_tpu_torch.ops.planar import PLANAR
+from cubicsdr_tpu_torch.stream.op import StreamOp
+
+MIN_BANDWIDTH = 500           # ref: src/modules/modem/Modem.h:13
+DEFAULT_AUDIO_RATE = 48000
+
+_MODEM_REGISTRY: dict[str, type] = {}
+
+
+def register_modem(cls):
+    """Class decorator: Modem::addModemFactory analog."""
+    _MODEM_REGISTRY[cls.name] = cls
+    return cls
+
+
+def make_modem(name: str, **settings) -> "Modem":
+    """Modem::makeModem analog. Raises KeyError for a modem the port does
+    not have yet."""
+    m = _MODEM_REGISTRY[name]()
+    for k, v in settings.items():
+        m.write_setting(k, v)
+    return m
+
+
+class Modem:
+    """Host-side modem object: holds settings, builds kits."""
+
+    name: str = "?"
+    default_sample_rate: int = 200000
+
+    def __init__(self):
+        self.settings: dict[str, Any] = {}
+
+    def write_setting(self, key: str, value):
+        self.settings[key] = value
+
+    @classmethod
+    def check_sample_rate(cls, sample_rate: int, audio_rate: int) -> int:
+        return max(int(sample_rate), MIN_BANDWIDTH)
+
+    def block_multiple(self, sample_rate: int, audio_rate: int) -> int:
+        """Input block length must be a multiple of this."""
+        return 1
+
+    def build_kit(self, sample_rate: int,
+                  audio_rate: int = DEFAULT_AUDIO_RATE,
+                  batch_shape: tuple = (), dtype=PLANAR) -> StreamOp:
+        raise NotImplementedError
+
+    def uses_signal_output(self) -> bool:
+        """Whether squelch level is computed from demodulated audio instead
+        of IQ magnitude (ref: DemodulatorThread.cpp:149)."""
+        return False

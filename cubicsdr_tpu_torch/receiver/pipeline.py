@@ -1,0 +1,253 @@
+"""ReceiverPipeline — the whole receive step for a fixed plan
+(``cubicsdr_tpu/receiver/pipeline.py``; ref: SURVEY.md §3.2, the
+SDRPostThread -> PreThread -> DemodulatorThread -> AudioThread chain):
+
+    iq[L] -> PFBCH2 channelizer -> DC blocker on channel 0
+          -> route each demod to its nearest channel
+          -> NCO + resample (fused CUDA kernel with use_kernels)
+          -> FM kits -> squelch/level -> stereo upmix -> gain/mute/solo mix
+
+Retunes, squelch levels, gains and mutes are per-block control tensors.
+The port carries planar IQ (``dtype=PLANAR``) through the 'pfbch2'
+channelizer; its modem bank is FM/NBFM so far.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from cubicsdr_tpu_torch.io.sources import optimal_channel_count
+from cubicsdr_tpu_torch.modems import make_modem
+from cubicsdr_tpu_torch.ops.channelizer import ChannelizerPFB2, channel_centers
+from cubicsdr_tpu_torch.ops.iir import DCBlocker
+from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
+from cubicsdr_tpu_torch.ops.resample import design_ratio
+from cubicsdr_tpu_torch.receiver.frontend import (
+    ChannelFrontend, RoutedChannelFrontend, shift_omegas)
+from cubicsdr_tpu_torch.receiver.mixer import mix_audio
+from cubicsdr_tpu_torch.receiver.squelch import SquelchGate
+from cubicsdr_tpu_torch.stream.op import StreamOp
+
+
+@dataclass(frozen=True)
+class DemodGroupSpec:
+    """A batch of demodulators sharing one modem type/bandwidth."""
+    modem_name: str
+    bandwidth: int
+    count: int
+    settings: tuple = ()          # modem settings as sorted (k, v) pairs
+
+    @property
+    def settings_dict(self):
+        return dict(self.settings)
+
+
+class ReceiverPipeline(StreamOp):
+    """Fixed-plan receiver on ``device``.
+
+    Constructor arguments are the JAX package's, with ``use_kernels`` for
+    ``use_pallas`` (the hand-written CUDA kernels instead of the Pallas
+    ones; on CPU data their plain versions run) and an explicit
+    ``device``. Only ``chan_mode='pfbch2'`` and ``dtype=PLANAR`` exist in
+    the port so far."""
+
+    def __init__(self, sample_rate: float, groups: list[DemodGroupSpec],
+                 chan_mode: str = "pfbch2", num_channels: int | None = None,
+                 audio_rate: int = 48000, block_len: int | None = None,
+                 dtype=PLANAR, use_kernels: bool = False, device=None):
+        super().__init__()
+        if chan_mode != "pfbch2" or dtype != PLANAR:
+            raise ValueError("the port has chan_mode='pfbch2' with "
+                             "dtype=PLANAR only")
+        self.sample_rate = float(sample_rate)
+        self.audio_rate = int(audio_rate)
+        self.chan_mode = chan_mode
+        self.groups = list(groups)
+        self.dtype = dtype
+        self.use_kernels = bool(use_kernels)
+        self.M = num_channels or optimal_channel_count(sample_rate)
+        self.chan_rate = self.sample_rate / self.M * 2
+
+        self._modems = []
+        frontends, kits, gates = [], [], []
+        for g in self.groups:
+            modem = make_modem(g.modem_name, **g.settings_dict)
+            bw = modem.check_sample_rate(g.bandwidth, audio_rate)
+            frontends.append(ChannelFrontend(self.chan_rate, bw, g.count,
+                                             dtype=dtype))
+            kits.append(modem.build_kit(bw, audio_rate,
+                                        batch_shape=(g.count,), dtype=dtype))
+            gates.append(SquelchGate(
+                audio_rate, g.count,
+                use_signal_out=[modem.uses_signal_output()] * g.count))
+            self._modems.append(modem)
+        self.kits = nn.ModuleList(kits)
+        self.gates = nn.ModuleList(gates)
+
+        # Channelizer + DC blocker (channel 0 carries the tuner DC spike,
+        # ref: SDRPostThread.cpp:364-375).
+        self.channelizer = ChannelizerPFB2(self.M, use_kernels=use_kernels)
+        self._decim = self.M // 2
+        self.dc = DCBlocker(0.0005)
+        self.register_buffer("centers", torch.from_numpy(
+            channel_centers(self.M, self.sample_rate).astype(np.float32)))
+
+        self.frontends = nn.ModuleList(frontends)
+        self.block_len = block_len or self.choose_block_len()
+        self._check_lengths()
+
+        # Fused route+frontend: groups whose first resampler stage admits a
+        # fused tile skip the per-demod channel gather entirely.
+        self.fused_route = [False] * len(self.groups)
+        if use_kernels:
+            for gi, fe in enumerate(self.frontends):
+                rfe = RoutedChannelFrontend.upgrade(fe, self.M,
+                                                    self._chan_len)
+                if rfe is not None:
+                    self.frontends[gi] = rfe
+                    self.fused_route[gi] = True
+        self.to(device)
+
+    # --- static shape bookkeeping ---
+    def group_block_multiple(self, gi: int) -> int:
+        fe = self.frontends[gi]
+        b_k = self._modems[gi].block_multiple(int(fe.bandwidth),
+                                              self.audio_rate)
+        t = b_k // math.gcd(fe.P, b_k)
+        return self._decim * fe.Q * t
+
+    def choose_block_len(self, target_batches_per_sec: int = 60) -> int:
+        m = self._decim
+        for gi in range(len(self.groups)):
+            m = math.lcm(m, self.group_block_multiple(gi))
+        if self.use_kernels:
+            # Best-effort 128-step alignment, as the JAX package aligns for
+            # its kernels: the fused tile rule (S = (O/P)*Q | 128) then
+            # holds, capped so pathological Q can't explode the block.
+            for fe in self.frontends:
+                cand = math.lcm(m, self._decim * fe.Q * 128)
+                if cand <= (1 << 21):
+                    m = cand
+        n = int(self.sample_rate / target_batches_per_sec)
+        return max(((n + m - 1) // m) * m, m)
+
+    def _check_lengths(self):
+        lc = self.block_len // self._decim
+        self._chan_len = lc
+        outs = set()
+        for gi, fe in enumerate(self.frontends):
+            if lc % fe.Q:
+                raise ValueError(
+                    f"block_len {self.block_len} -> channel len {lc} not "
+                    f"divisible by frontend Q={fe.Q}; use choose_block_len()")
+            outs.add(self._kit_out_len(gi, fe.out_len(lc)))
+        if len(outs) > 1:
+            raise ValueError(f"groups produce different audio lengths "
+                             f"{outs}: bandwidth/audio ratios must be exact "
+                             f"rationals")
+        self.audio_len = outs.pop() if outs else 0
+
+    def _kit_out_len(self, gi, in_len):
+        fe = self.frontends[gi]
+        P, Q = design_ratio(self.audio_rate / fe.bandwidth,
+                            max_denominator=500)
+        return in_len // Q * P
+
+    # --- state ---
+    def init_state(self):
+        return {
+            "chan": self.channelizer.init_state(),
+            "dc": self.dc.init_state(),
+            "groups": tuple(
+                (fe.init_state(), kit.init_state(), gate.init_state())
+                for fe, kit, gate in
+                zip(self.frontends, self.kits, self.gates)),
+        }
+
+    # --- control vector layout: per-demod parameters, grouped ---
+    def control_template(self):
+        """Per-group dicts of arrays the caller fills each step (numpy or
+        tensors on the pipeline's device)."""
+        out = []
+        for g in self.groups:
+            n = g.count
+            out.append({
+                "frequency": np.zeros(n, np.float32),   # offset from center Hz
+                "squelch_level": np.full(n, -100.0, np.float32),
+                "squelch_enabled": np.zeros(n, bool),
+                "gain": np.ones(n, np.float32),
+                "active": np.ones(n, bool),             # mute/solo resolved
+            })
+        return out
+
+    def apply(self, state, inputs):
+        """inputs = (iq PC [L], controls list-of-dicts). Returns (state,
+        outputs): mix [2, La], mix_peak, per-group dicts (audio, level,
+        floor, ceil, peak, squelched, iq) and the iq passthrough."""
+        iq, controls = inputs
+        dev = self.device
+        st_chan, chans = self.channelizer.apply(state["chan"], iq)
+        # DC-block channel 0 (tuner spike), written in place into the
+        # channelizer's fresh output.
+        st_dc, ch0 = self.dc.apply(state["dc"], PC(chans.re[0], chans.im[0]))
+        chans.re[0] = ch0.re
+        chans.im[0] = ch0.im
+
+        group_states, group_outs = [], []
+        audio_all, peaks_all, gains_all, active_all = [], [], [], []
+        for gi, (fe, kit, gate) in enumerate(
+                zip(self.frontends, self.kits, self.gates)):
+            s_fe, s_kit, s_gate = state["groups"][gi]
+            ctl = controls[gi]
+            freqs = torch.as_tensor(ctl["frequency"], dtype=torch.float32,
+                                    device=dev)
+            # Route each demod to its nearest channel (first on ties, as
+            # jnp.argmin; ref: SDRPostThread::getChannelAt,
+            # src/sdr/SDRPostThread.cpp:128-139).
+            dist = (freqs[:, None] - self.centers[None, :]).abs()
+            chan_idx = dist.argmin(dim=-1)
+            omega = shift_omegas(freqs, self.centers[chan_idx],
+                                 self.chan_rate)
+            if self.fused_route[gi]:
+                s_fe, y = fe.apply(s_fe, (chans, chan_idx, omega))
+            else:
+                x = PC(chans.re[chan_idx], chans.im[chan_idx])  # [N, Lc]
+                s_fe, y = fe.apply(s_fe, (x, omega))
+            s_kit, ko = kit.apply(s_kit, y)
+            s_gate, gout = gate.apply(
+                s_gate, (ko, y, ctl["squelch_level"],
+                         ctl["squelch_enabled"]))
+            a = gout["audio"]
+            if a.shape[-2] == 1:                        # mono -> stereo
+                a = torch.cat([a, a], dim=-2)
+            audio_all.append(a)
+            peaks_all.append(gout["peak"])
+            gains_all.append(torch.as_tensor(ctl["gain"],
+                                             dtype=torch.float32, device=dev))
+            active_all.append(torch.as_tensor(ctl["active"], device=dev)
+                              .to(torch.float32))
+            # Per-demod IQ tap for the demod spectrum/scope views
+            # (ref: SDRPostThread.cpp:233-245).
+            gout["iq"] = y
+            group_states.append((s_fe, s_kit, s_gate))
+            group_outs.append(gout)
+
+        if audio_all:
+            mix, mix_peak = mix_audio(torch.cat(audio_all, dim=-3),
+                                      torch.cat(gains_all, dim=-1),
+                                      torch.cat(active_all, dim=-1),
+                                      torch.cat(peaks_all, dim=-1))
+        else:
+            mix = torch.zeros((2, self.audio_len), dtype=torch.float32,
+                              device=dev)
+            mix_peak = torch.zeros((), dtype=torch.float32, device=dev)
+
+        new_state = {"chan": st_chan, "dc": st_dc,
+                     "groups": tuple(group_states)}
+        return new_state, {"mix": mix, "mix_peak": mix_peak,
+                           "groups": group_outs, "iq": iq}

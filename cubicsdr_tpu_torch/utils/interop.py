@@ -1,0 +1,83 @@
+"""Carry state and constants between the JAX package and the port.
+
+The JAX package is the reference; its pipeline state, converted leaf by
+leaf to numpy (e.g. ``jax.tree.map(np.asarray, state)``), continues the
+stream in the port, and back. The port's "weights" are its constant taps
+and matrices: ``constants_from_jax`` checks each one the port built
+against the JAX pipeline's. Nothing here imports jax: a JAX state or
+pipeline is only read through its attributes and numpy conversion.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cubicsdr_tpu_torch.ops.planar import PC
+from cubicsdr_tpu_torch.ops.resample import _toeplitz_np
+from cubicsdr_tpu_torch.receiver.frontend import RoutedChannelFrontend
+from cubicsdr_tpu_torch.utils.tree import tree_map
+
+
+def _is_pc(node) -> bool:
+    return getattr(node, "_fields", None) == ("re", "im")
+
+
+def state_from_numpy(tree, device=None):
+    """A JAX pipeline state with numpy leaves -> the port's state: tensors
+    on ``device``, planar (re, im) NamedTuples as the port's ``PC``."""
+    def node(nt, kids):
+        return PC(*kids) if _is_pc(nt) else type(nt)(*kids)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    tree, node_map=node)
+
+
+def state_to_numpy(state):
+    """The port's state -> the same nest with numpy leaves (``PC`` kept)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+def _pairs(rx_jax, rx):
+    """(name, JAX value, port value) for every plan scalar, tap and
+    matrix."""
+    for attr in ("M", "chan_rate", "block_len", "audio_len"):
+        yield attr, getattr(rx_jax, attr), getattr(rx, attr)
+    ch_j, ch = rx_jax.channelizer, rx.channelizer
+    yield "channelizer.h_poly", ch_j.h_poly, ch.h_poly
+    yield "channelizer.c.re", np.asarray(ch_j.c_pc.re)[:, 0], ch.c_re
+    yield "channelizer.c.im", np.asarray(ch_j.c_pc.im)[:, 0], ch.c_im
+    for gi, (fe_j, fe) in enumerate(zip(rx_jax.frontends, rx.frontends)):
+        for si, (a, b) in enumerate(zip(_stages(fe_j.resampler),
+                                        _stages(fe.resampler))):
+            yield f"frontends[{gi}].stage[{si}].ker", a.ker, b.ker
+        if isinstance(fe, RoutedChannelFrontend):
+            # The JAX kernel builds its tile matrix from its stage kernel
+            # with the same banded layout.
+            rs = fe_j._stage1
+            T, _, _ = _toeplitz_np(
+                tuple(np.asarray(rs.ker).reshape(-1).tolist()), rs.P, rs.Q,
+                rs.KK, fe.tile)
+            yield f"frontends[{gi}].toep", T, fe._stage1.toeplitz(fe.tile)[0]
+    for gi, (k_j, k) in enumerate(zip(rx_jax.kits, rx.kits)):
+        for si, (a, b) in enumerate(zip(_stages(k_j.resampler),
+                                        _stages(k.resampler))):
+            yield f"kits[{gi}].stage[{si}].ker", a.ker, b.ker
+
+
+def _stages(resampler):
+    return list(getattr(resampler, "stages", [resampler]))
+
+
+def constants_from_jax(rx_jax, rx) -> list[str]:
+    """Check that every tap and matrix the port pipeline ``rx`` built
+    equals the JAX pipeline ``rx_jax``'s exactly; return the names
+    checked, raise ValueError on the first mismatch."""
+    names = []
+    for name, a, b in _pairs(rx_jax, rx):
+        a = np.asarray(a)
+        b = b.detach().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise ValueError(f"constant {name} differs from the JAX "
+                             f"package's")
+        names.append(name)
+    return names
