@@ -19,7 +19,22 @@ Phases, each printing one line:
    checked against the same pipeline on the CPU (the kernels' plain
    versions), for the kernels' launch counts, and for a recovered tone;
 5. main-path throughput with device-resident IQ at 16 and 256 demods,
-   with the kernels and with their plain versions.
+   with the kernels and with their plain versions;
+6. the live loop (``app.runner.LiveReceiver``: ring -> staged host->device
+   copy -> step -> packed post-step -> one device->host pull) at the same
+   demod16 width: 6 blocks of the 16-station signal with two demods
+   recording, a subset audio sink, the demod view on one row, the zoom
+   view at +1 MHz / 1 MHz and a 1024-point, 64-line waterfall, checked
+   against the same live loop on the CPU (WAVs and mix at the pipeline
+   tolerances, waterfall lines at 2e-3, lines per block exactly), for
+   both kernels' launch counts (6 each), no view or sink error and no
+   ring drop;
+7. a checkpoint of the live loop's state after 3 blocks, saved, loaded
+   into a fresh receiver and run over blocks 4-6: its audio equals the
+   uninterrupted run's within 1e-6;
+8. live-loop throughput (the JAX package's ``bench.py`` live rows: a
+   cycling source with back-pressure, 8 warm-up and 40 timed blocks) with
+   float32, int16 and int8 ring formats.
 
 Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
@@ -32,7 +47,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import wave
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,6 +59,9 @@ FS = 8_000_000
 BLOCK = 1_024_000
 PFB_ATOL = 2e-4
 ROUTE_ATOL = 5e-5
+LIVE_BLOCKS = 6
+WF_ATOL = 2e-3          # spectrum points (tests/test_planar_spectrum.py)
+RESUME_ATOL = 1e-6      # checkpoint resume (tests/test_checkpoint.py:50)
 
 
 def line(msg: str) -> None:
@@ -250,6 +271,200 @@ def throughput(dev, n_demods: int, use_kernels: bool, n_blocks: int = 20,
     return n_blocks * block / dt / 1e6, dt / n_blocks * 1e3
 
 
+def audio_close(a, b, what: str) -> dict:
+    """Pipeline tolerances: rms of the difference < 2e-3, 99.5% quantile
+    < 5e-3."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shape {a.shape} vs {b.shape}")
+    d = np.abs(a - b)
+    rms, q995 = float(np.sqrt(np.mean(d * d))), float(np.quantile(d, 0.995))
+    if not (rms < 2e-3 and q995 < 5e-3):
+        raise AssertionError(f"{what} vs CPU: rms {rms}, q995 {q995}")
+    return {"rms": rms, "q995": q995}
+
+
+def live_blocks(n_demods: int = 16):
+    """LIVE_BLOCKS host blocks (planes [2, BLOCK] float32) of the
+    16-station signal, and the demod offsets."""
+    from cubicsdr_tpu_torch.utils.synth import demod_freqs, synth_fm
+    freqs = demod_freqs(n_demods, spread=15)
+    iq = synth_fm(freqs[:15], LIVE_BLOCKS * BLOCK, FS, "cuda", seed=3)
+    iq = iq.cpu().numpy()
+    return freqs, [np.ascontiguousarray(iq[:, b * BLOCK:(b + 1) * BLOCK])
+                   for b in range(LIVE_BLOCKS)]
+
+
+def run_live(rx, freqs, blocks, out_dir: Path | None, views: bool):
+    """One finite run of the live loop; returns (receiver, per-block mix,
+    per-block waterfall line counts)."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    controls = rx.control_template()
+    controls[0]["frequency"] = freqs
+    mixes, lines, drawn = [], [], [0]
+
+    def on_block(o):
+        mixes.append(o["mix"].copy())
+        lines.append(drawn[0])
+        drawn[0] = 0
+
+    lr = LiveReceiver(rx, controls, iter(blocks), waterfall_fft=1024,
+                      waterfall_lines=64, on_block=on_block)
+    add_lines = lr.waterfall.add_lines
+
+    def count_lines(pts):
+        drawn[0] += len(pts)
+        add_lines(pts)
+
+    lr.waterfall.add_lines = count_lines
+    if views:
+        for key in (0, 5):
+            lr.set_recording(key, True, path=str(out_dir / "rec"))
+        lr.set_audio_sink("sub", f"wav:{out_dir / 'sub'}", demods=[2, 3])
+        lr.set_demod_view(4)
+        lr.set_zoom(1e6, 1e6)
+    return lr, mixes, lines
+
+
+def read_pcm16(path: Path) -> np.ndarray:
+    """A 16-bit PCM WAV (the recorders' format) as float32 [channels, n]."""
+    with wave.open(str(path), "rb") as wf:
+        if wf.getsampwidth() != 2:
+            raise AssertionError(f"{path}: not 16-bit PCM")
+        ch = wf.getnchannels()
+        raw = wf.readframes(wf.getnframes())
+    x = np.frombuffer(raw, np.int16).astype(np.float32) / 32767.0
+    return x.reshape(-1, ch).T.copy()
+
+
+def drive_live(lr) -> int:
+    """Start the producer and run the finite source to its end."""
+    lr.start_producer()
+    return lr.run_blocks()
+
+
+def check_live(dev):
+    """Phases 6 and 7. Returns (launches in the live run, summary)."""
+    from cubicsdr_tpu_torch.app.checkpoint import load_state, save_state
+    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
+    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
+    freqs, blocks = live_blocks()
+    rx = build_pipeline(16, dev, True)
+    rx_cpu = build_pipeline(16, "cpu", True)
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for name, pipe in (("cuda", rx), ("cpu", rx_cpu)):
+            d = Path(tmp) / name
+            d.mkdir()
+            lr, mixes, lines = run_live(pipe, freqs, blocks, d, views=True)
+            if name == "cuda":
+                torch.cuda.synchronize()
+                pfbch2_planar.launches = 0
+                routed_shifted_resample.launches = 0
+            t0 = time.perf_counter()
+            n = drive_live(lr)
+            if name == "cuda":
+                torch.cuda.synchronize()
+                launches = {
+                    "pfbch2_planar": pfbch2_planar.launches,
+                    "routed_shifted_resample":
+                        routed_shifted_resample.launches}
+            lr.stop()
+            summary[f"{name}_s"] = time.perf_counter() - t0
+            if n != LIVE_BLOCKS:
+                raise AssertionError(f"{name} live run took {n} blocks")
+            bad = [k for k in lr.metrics.notes
+                   if k.startswith(("zoom_error", "audio_out_error"))]
+            if bad:
+                raise AssertionError(f"{name} live run noted {bad}: "
+                                     f"{lr.metrics.notes}")
+            runs[name] = dict(
+                lr=lr, mixes=mixes, lines=lines,
+                wavs={f: read_pcm16(d / f"{f}.wav")
+                      for f in ("rec_demod0", "rec_demod5", "sub")})
+        g, c = runs["cuda"], runs["cpu"]
+        if launches != {"pfbch2_planar": LIVE_BLOCKS,
+                        "routed_shifted_resample": LIVE_BLOCKS}:
+            raise AssertionError(f"live run launches {launches}, expected "
+                                 f"{LIVE_BLOCKS} of each")
+        drops = (g["lr"].ring.dropped_samples,
+                 g["lr"].metrics.snapshot()["ingest"]["dropped"])
+        if drops != (0, 0):
+            raise AssertionError(f"ring dropped samples: {drops}")
+        worst = {"rms": 0.0, "q995": 0.0}
+        for f in g["wavs"]:
+            e = audio_close(g["wavs"][f], c["wavs"][f], f"wav {f}")
+            worst = {k: max(worst[k], e[k]) for k in worst}
+        for i, (a, b) in enumerate(zip(g["mixes"], c["mixes"])):
+            e = audio_close(a, b, f"mix block {i}")
+            worst = {k: max(worst[k], e[k]) for k in worst}
+            if not np.isfinite(a).all():
+                raise AssertionError("non-finite mix in the live run")
+        if g["lines"] != c["lines"]:
+            raise AssertionError(f"waterfall lines per block {g['lines']} "
+                                 f"vs CPU {c['lines']}")
+        # The first two lines of a stream are 0/0-conditioned (a frame of
+        # history zeros plus one sample has a flat |FFT|, so ceiling ==
+        # floor, and the double EMA carries it into line 2): rounding
+        # decides them on either device, so they are not compared. Early
+        # lines may hold NaN points (log10 of a negative while the EMA'd
+        # floor still sits above the spectrum), as in the JAX package:
+        # those must sit at the same points.
+        total = sum(g["lines"])
+        wf = [r["lr"].waterfall.buffer[-(total - 2):] for r in (g, c)]
+        views = {"zoom": [r["lr"].zoom.points for r in (g, c)],
+                 "demod_view": [r["lr"].demod_spectrum for r in (g, c)]}
+        errs = {}
+        for what, (a, b) in {"waterfall": wf, **views}.items():
+            np.testing.assert_allclose(a, b, atol=WF_ATOL, err_msg=what)
+            ok = np.isfinite(a)
+            errs[what] = float(np.abs(a[ok] - b[ok]).max())
+            errs[f"{what}_nan_points"] = int((~ok).sum())
+        summary.update(audio=worst, points_err=errs,
+                       waterfall_lines=g["lines"],
+                       ring_dropped_samples=drops[0])
+
+        # Phase 7: checkpoint after 3 blocks, resume in a fresh receiver.
+        lr_a, _, _ = run_live(rx, freqs, blocks[:3], None, views=False)
+        if drive_live(lr_a) != 3:
+            raise AssertionError("checkpoint run: first half short")
+        p = str(Path(tmp) / "live.npz")
+        save_state(p, lr_a.snapshot_state(), meta={"blocks": 3})
+        lr_a.stop()
+        lr_b, mixes_b, _ = run_live(rx, freqs, blocks[3:], None,
+                                    views=False)
+        lr_b.state, meta = load_state(p, rx.init_state())
+        if drive_live(lr_b) != LIVE_BLOCKS - 3 or meta != {"blocks": 3}:
+            raise AssertionError("checkpoint run: second half short")
+        lr_b.stop()
+        resume_err = max(float(np.abs(a - b).max())
+                         for a, b in zip(mixes_b, g["mixes"][3:]))
+        if not resume_err <= RESUME_ATOL:
+            raise AssertionError(f"resumed audio differs by {resume_err}")
+        summary["resume_err"] = resume_err
+    return launches, summary
+
+
+def live_throughput(rx, ingest_dtype, n_warm: int = 8, n_timed: int = 40):
+    """The live loop's Msamples/s with a back-pressured cycling source
+    (the shape of the JAX package's bench.py:175-258)."""
+    from cubicsdr_tpu_torch.utils.metrics import Metrics
+    from cubicsdr_tpu_torch.utils.synth import live_row
+    lr = live_row(rx, ingest_dtype, n_warm)
+    lr.metrics = Metrics()
+    t0 = time.perf_counter()
+    n = lr.run_blocks(max_blocks=n_timed)
+    dt = time.perf_counter() - t0
+    snap = lr.metrics.snapshot()
+    lr.stop()
+    if n != n_timed:
+        raise AssertionError(f"live throughput ran {n} of {n_timed} blocks")
+    return {"msamples_per_s": n * rx.block_len / dt / 1e6,
+            "ms_per_block": dt / n * 1e3, "blocks": n,
+            "ring_dropped_samples": int(snap["ingest"]["dropped"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -299,11 +514,22 @@ def main() -> int:
                              "msamples_per_s": msps, "ms_per_block": ms,
                              "block_len": BLOCK, "card": smi}))
 
+    live_launches, live = check_live(dev)
+    line(f"live loop demod16 x{LIVE_BLOCKS} blocks: launches "
+         f"{live_launches}, vs CPU {json.dumps(live)}")
+
+    rx = build_pipeline(16, dev, True)
+    for row, dt in (("live16", np.float32), ("live16_int16", np.int16),
+                    ("live16_int8", np.int8)):
+        r = live_throughput(rx, dt)
+        line(json.dumps({"row": row, **r, "block_len": BLOCK, "card": smi}))
+
     kernels = [
         {"name": "pfbch2_planar", "route": "cuda",
          "source": "cubicsdr_tpu_torch/csrc/pfb.cu",
          "replaces": "cubicsdr_tpu/ops/pallas/pfb.py:110",
          "launches": launches["pfbch2_planar"],
+         "live_launches": live_launches["pfbch2_planar"],
          "max_abs_err": max(c["max_abs_err"] for c in pfb_cases),
          "ms": pfb_cases[0]["ms"], "plain_ms": pfb_cases[0]["plain_ms"],
          "cases": pfb_cases},
@@ -311,6 +537,7 @@ def main() -> int:
          "source": "cubicsdr_tpu_torch/csrc/route.cu",
          "replaces": "cubicsdr_tpu/ops/pallas/route.py:161",
          "launches": launches["routed_shifted_resample"],
+         "live_launches": live_launches["routed_shifted_resample"],
          "max_abs_err": max(c["max_abs_err"] for c in route_cases),
          "ms": route_cases[0]["ms"], "plain_ms": route_cases[0]["plain_ms"],
          "cases": route_cases},

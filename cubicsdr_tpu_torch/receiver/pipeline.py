@@ -251,3 +251,47 @@ class ReceiverPipeline(StreamOp):
                      "groups": tuple(group_states)}
         return new_state, {"mix": mix, "mix_peak": mix_peak,
                            "groups": group_outs, "iq": iq}
+
+
+def plan_from_manager(mgr, audio_rate: int = 48000
+                      ) -> tuple[list[DemodGroupSpec], dict]:
+    """Group a DemodulatorMgr's demods into batched specs (type+bandwidth+
+    settings share one row-set); returns (specs in mgr order of groups,
+    {group key: its demods}) — the JAX package's host-side planner."""
+    keyed: dict = {}
+    for d in mgr.get_demodulators():
+        key = (d.demod_type, int(d.bandwidth),
+               tuple(sorted(d.read_modem_settings().items())))
+        keyed.setdefault(key, []).append(d)
+    return [DemodGroupSpec(k[0], k[1], len(v), k[2])
+            for k, v in keyed.items()], keyed
+
+
+def controls_from_manager(mgr, pipeline: ReceiverPipeline, keyed: dict,
+                          center_freq: float):
+    """Fill the pipeline's control vectors from live instance properties
+    (solo/mute resolution per ref: DemodulatorThread solo squelch-lock +
+    AudioThread mute semantics)."""
+    any_solo = any(d.solo for d in mgr.get_demodulators())
+    half = pipeline.sample_rate / 2
+    controls = []
+    for (key, demods), g in zip(keyed.items(), pipeline.groups):
+        n = len(demods)
+        # Range (de)activation: demods outside the captured band go silent
+        # (ref: SDRPostThread::updateActiveDemodulators,
+        # src/sdr/SDRPostThread.cpp:66-89).
+        in_range = [abs(d.frequency - center_freq) <= half for d in demods]
+        ctl = {
+            "frequency": np.asarray(
+                [d.frequency - center_freq for d in demods], np.float32),
+            "squelch_level": np.asarray(
+                [d.squelch_level for d in demods], np.float32),
+            "squelch_enabled": np.asarray(
+                [d.squelch_enabled for d in demods], bool),
+            "gain": np.asarray([d.gain for d in demods], np.float32),
+            "active": np.asarray(
+                [ir and not d.muted and (d.solo or not any_solo)
+                 for d, ir in zip(demods, in_range)], bool),
+        }
+        controls.append(ctl)
+    return controls

@@ -24,8 +24,11 @@ def _is_pc(node) -> bool:
 
 
 def state_from_numpy(tree, device=None):
-    """A JAX pipeline state with numpy leaves -> the port's state: tensors
-    on ``device``, planar (re, im) NamedTuples as the port's ``PC``."""
+    """A JAX state with numpy (or jax array) leaves -> the port's state:
+    tensors on ``device``, planar (re, im) NamedTuples as the port's
+    ``PC``, dtypes kept. Serves the pipeline state and the visual states
+    alike: the distributor's ``(hist PC, next_pos)`` and the spectrum
+    dict, ``primed`` staying bool."""
     def node(nt, kids):
         return PC(*kids) if _is_pc(nt) else type(nt)(*kids)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
@@ -35,6 +38,18 @@ def state_from_numpy(tree, device=None):
 def state_to_numpy(state):
     """The port's state -> the same nest with numpy leaves (``PC`` kept)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+def live_state_from_jax(lr_jax, lr) -> None:
+    """Continue a JAX ``LiveReceiver``'s stream in the port's ``lr`` (same
+    plan and display configuration): its pipeline state and the waterfall
+    chain's distributor and spectrum states move over. Rings, views and
+    sinks are not state and stay the port's own."""
+    dev = lr.device
+    with lr.step_lock:
+        lr.state = state_from_numpy(lr_jax.snapshot_state(), dev)
+        lr._st_dist = state_from_numpy(lr_jax._st_dist, dev)
+        lr._st_spec = state_from_numpy(lr_jax._st_spec, dev)
 
 
 def _pairs(rx_jax, rx):

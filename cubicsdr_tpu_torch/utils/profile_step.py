@@ -1,15 +1,22 @@
-"""Where the port's receive step spends its time on one CUDA device.
+"""Where the port's receive step and live loop spend their time on one
+CUDA device.
 
     python3 -m cubicsdr_tpu_torch.utils.profile_step [--demods 16 256]
-                                                     [--blocks 10]
+                                                     [--blocks 10] [--live]
 
 Runs ReceiverPipeline(use_kernels=True) (8 MS/s, FM demods, 1,024,000-
 sample blocks, device-resident IQ and controls) under torch.profiler and
 prints one JSON line per demod count: the wall time per block, the summed
 device kernel time per block, the device idle share (1 - kernel time /
 wall time) and the kernels that take the most device time. The profiler
-slows the host, so its wall times read above unprofiled ones. Needs a
-CUDA device; there is no CPU fallback.
+slows the host, so its wall times read above unprofiled ones.
+
+``--live`` profiles the live loop instead (demod16, a back-pressured
+cycling source, 1024-point 64-line waterfall), one line per ring format:
+first an unprofiled run timed per consumer stage on the host clock (the
+step, the post-step dispatch, the finish with its pull; the rest is the
+wait for the staging worker), then a profiled run for device time and
+idle share. Needs a CUDA device; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -51,8 +58,16 @@ def profile(n_demods: int, n_blocks: int, top: int = 12) -> dict:
             st, _ = rx.apply(st, (blk, controls))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    dev_us = 0.0
+    wall_ms = wall / n_blocks * 1e3
+    dev_ms, rows = _device_ms(prof, n_blocks, top)
+    return {"demods": n_demods, "wall_ms_per_block": wall_ms,
+            "device_ms_per_block": dev_ms,
+            "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
+            "top": rows}
+
+
+def _device_ms(prof, n_blocks: int, top: int):
+    rows, dev_us = [], 0.0
     for e in prof.key_averages():
         # Kernel rows only: an aten op's row repeats its kernels' time.
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -62,24 +77,73 @@ def profile(n_demods: int, n_blocks: int, top: int = 12) -> dict:
             rows.append((t, e.count, e.key))
             dev_us += t
     rows.sort(reverse=True)
-    wall_ms = wall / n_blocks * 1e3
-    dev_ms = dev_us / n_blocks / 1e3
-    return {"demods": n_demods, "wall_ms_per_block": wall_ms,
+    return dev_us / n_blocks / 1e3, [
+        {"kernel": k[:90], "ms_per_block": t / n_blocks / 1e3,
+         "launches_per_block": c / n_blocks} for t, c, k in rows[:top]]
+
+
+def profile_live(ingest_dtype, n_blocks: int, top: int = 8) -> dict:
+    import numpy as np
+
+    from cubicsdr_tpu_torch.utils.synth import live_row
+    dev = torch.device("cuda", 0)
+    rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)],
+                          use_kernels=True, block_len=BLOCK, device=dev)
+    lr = live_row(rx, ingest_dtype, n_warm=8)
+    spent = {"step": 0.0, "post_dispatch": 0.0, "finish": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return run
+
+    lr.step = timed(lr.step, "step")
+    lr._fanout_dispatch = timed(lr._fanout_dispatch, "post_dispatch")
+    lr._fanout_finish = timed(lr._fanout_finish, "finish")
+    t0 = time.perf_counter()
+    lr.run_blocks(max_blocks=n_blocks)
+    wall = time.perf_counter() - t0
+    stages = {k: v / n_blocks * 1e3 for k, v in spent.items()}
+    stages["other_and_staging_wait"] = (wall - sum(spent.values())
+                                        ) / n_blocks * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        lr.run_blocks(max_blocks=n_blocks)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    lr.stop()
+    dev_ms, rows = _device_ms(prof, n_blocks, top)
+    pwall_ms = pwall / n_blocks * 1e3
+    return {"row": "live16", "ingest": np.dtype(ingest_dtype).name,
+            "wall_ms_per_block": wall / n_blocks * 1e3,
+            "host_ms_per_block_by_stage": stages,
+            "profiled_wall_ms_per_block": pwall_ms,
             "device_ms_per_block": dev_ms,
-            "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
-            "top": [{"kernel": k[:90], "ms_per_block": t / n_blocks / 1e3,
-                     "launches_per_block": c / n_blocks}
-                    for t, c, k in rows[:top]]}
+            "device_idle_share": max(0.0, 1.0 - dev_ms / pwall_ms),
+            "top": rows}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--demods", type=int, nargs="+", default=[16, 256])
     ap.add_argument("--blocks", type=int, default=10)
+    ap.add_argument("--live", action="store_true",
+                    help="profile the live loop per ring format")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.live:
+        import numpy as np
+        for dt in (np.float32, np.int16, np.int8):
+            print(json.dumps(profile_live(dt, args.blocks)), flush=True)
+        return 0
     for n in args.demods:
         print(json.dumps(profile(n, args.blocks)), flush=True)
     return 0

@@ -31,6 +31,36 @@ def tree_map(fn, tree, *rest, node_map=None):
 
 
 def tree_leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
+    """Leaves in ``jax.tree_util.tree_leaves`` order: dict keys sorted,
+    tuples, lists and NamedTuples in order, None and empty nodes holding
+    no leaf. Checkpoint files index leaves in this order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t)]
+    if tree is None:
+        return []
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """Rebuild ``like``'s structure from ``leaves`` given in
+    ``tree_leaves`` order (dict insertion order is kept)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            kids = {k: build(node[k]) for k in sorted(node)}
+            return {k: kids[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            kids = [build(t) for t in node]
+            return (type(node)(*kids) if _is_namedtuple(node)
+                    else type(node)(kids))
+        if node is None:
+            return None
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
     return out
