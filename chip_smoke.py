@@ -7,12 +7,25 @@ NVIDIA GPU.
 Phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch build;
-2. build of both CUDA kernels from ``cubicsdr_tpu_torch/csrc/*.cu``;
+2. build of both CUDA kernels from ``cubicsdr_tpu_torch/csrc/*.cu`` into
+   ``cubicsdr_tpu_torch/_build/``, with ptxas's registers, stack and
+   spills per kernel instance, and which ring backend the live loop runs
+   (the port's own native ring, or its numpy path);
 3. each kernel vs its plain PyTorch version on the card at the main
-   path's shapes (PFB at M=16 over a 1,024,000-sample block and at M=6;
-   route at 16 and 256 demods over 128,000-sample channels), with the
-   device time of each call (captured in a CUDA graph and replayed
-   between CUDA events, so host dispatch is not timed);
+   path's shapes (PFB at M=16 over a 1,024,000-sample block, in the FFT
+   form; at M=6, and at M=10 with an odd step count and parity, in the
+   register DFT form; at M=20 and M=40 over the same block (10 and 20
+   MS/s sources) in the product form; at M=64 in the FFT form; and with
+   12 taps per branch in the product form; route 1/5
+   at 16 and 256 demods over 128,000-sample channels, and 2/5, 1/4 and
+   3/5 at 16, the last on the kernel's runtime-length tap loop, 1/40 at
+   NBFM's shape, whose residues 16 thread groups split, and 1/128, whose E
+   table does not fit and is computed in each pass), each with
+   its device time warm (8 calls on one buffer set in a CUDA graph, the
+   buffers L2-resident) and cold (a graph over distinct buffer sets totalling
+   150 MB, 3x the L2), its bound (bytes over 3.35 TB/s or FLOPs over
+   67 TFLOP/s f32, whichever is larger, from the shapes) and the share of
+   the bound the cold time reaches (a share above 1 fails the script);
 4. the main path — ReceiverPipeline(use_kernels=True) at 8 MS/s with 16
    FM demods and 1,024,000-sample blocks (the JAX package's demod16
    bench shape), 3 blocks of synthesised FM stations on the device —
@@ -36,7 +49,10 @@ Phases, each printing one line:
    cycling source with back-pressure, 8 warm-up and 40 timed blocks) with
    float32, int16 and int8 ring formats.
 
-Then one JSON line describing the kernels, and as the last line
+Then one JSON line describing the kernels (launches on the main path and
+the live path, error, cold/warm/plain ms, bound, roofline share; no
+single PyTorch call computes either function, so ``library_ms`` is null),
+and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 and no result line is printed. There is no CPU fallback: without a CUDA
 device the script fails.
@@ -62,26 +78,46 @@ ROUTE_ATOL = 5e-5
 LIVE_BLOCKS = 6
 WF_ATOL = 2e-3          # spectrum points (tests/test_planar_spectrum.py)
 RESUME_ATOL = 1e-6      # checkpoint resume (tests/test_checkpoint.py:50)
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and f32
+# outside the tensor cores. Cold timing moves 3x the 50 MB L2 per replay.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+COLD_BYTES = 150_000_000
+LIBRARY_NOTE = {
+    "pfbch2_planar": "none: no single PyTorch call computes a polyphase "
+                     "FIR, an M-point transform and the parity flip",
+    "routed_shifted_resample": "none: no single PyTorch call computes a "
+                               "channel gather, a modulation and a strided "
+                               "polyphase resample"}
 
 
 def line(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, bursts: int = 5, reps: int = 20) -> float:
-    """Device milliseconds of one ``fn()``: the call is captured once in a
-    CUDA graph and replayed ``reps`` times back to back between two CUDA
-    events, so host dispatch stays out of the timed window; the median
-    over ``bursts`` bursts."""
+def cuda_ms(fn, copies: int = 8) -> float:
+    """Warm device milliseconds of one ``fn()``: ``copies`` calls on the
+    same buffers captured in one CUDA graph and replayed between two CUDA
+    events, so host dispatch and the graph's own replay cost stay out of
+    the per-call time and the buffers stay in L2 when they fit."""
+    return graph_ms([fn] * copies, reps=5)
+
+
+def graph_ms(calls, bursts: int = 5, reps: int = 20) -> float:
+    """Device milliseconds per call of ``calls`` (a list of thunks),
+    captured in order in one CUDA graph, replayed between CUDA events;
+    the median over ``bursts`` bursts of ``reps`` replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):                    # warm-up outside the graph
-            fn()
+            for fn in calls:
+                fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph, keep = torch.cuda.CUDAGraph(), []
     with torch.cuda.graph(graph):
-        fn()
+        for fn in calls:
+            keep.append(fn())                 # distinct outputs per call
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -93,64 +129,163 @@ def cuda_ms(fn, bursts: int = 5, reps: int = 20) -> float:
             graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+        times.append(a.elapsed_time(b) / reps / len(calls))
     return float(np.median(times))
+
+
+def cold_ms(make_call, set_bytes: int) -> tuple[float, int]:
+    """Cold-L2 device milliseconds of one call: ``make_call(i)`` returns a
+    thunk over the i-th of k distinct input sets (each call allocates its
+    own outputs), k chosen so the sets' inputs and outputs together pass
+    COLD_BYTES (3x the 50 MB L2); the k calls are captured in one CUDA
+    graph, replayed between CUDA events, and the time divided by k.
+    Returns (ms, k)."""
+    k = max(2, -(-COLD_BYTES // set_bytes))
+    return graph_ms([make_call(i) for i in range(k)], reps=5), k
+
+
+def roofline(flops: float, nbytes: float, ms: float) -> dict:
+    """The least time the card could take (the larger of bytes over HBM
+    rate and FLOPs over f32 CUDA-core peak), what sets it, and the share
+    of it that ``ms`` reaches; a share above 1 is a counting or timing
+    fault and fails the script."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    bound = max(t_bytes, t_flops)
+    share = bound / ms
+    if not share <= 1.0:
+        raise AssertionError(f"roofline share {share} > 1: bound {bound} ms"
+                             f" vs measured {ms} ms")
+    return {"flops": flops, "bytes": nbytes, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "roofline_share": share,
+            "achieved_gb_per_s": nbytes / ms / 1e6,
+            "achieved_tflop_per_s": flops / ms / 1e9}
 
 
 def max_err(got, ref) -> float:
     return max(float((g - r).abs().max()) for g, r in zip(got, ref))
 
 
-def check_pfb(dev, M: int, n_steps: int, parity: int, rng):
-    """PFB kernel vs plain version on the card; returns (err, ms, plain_ms)."""
+def randn(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev)
+
+
+def check_pfb(dev, M: int, n_steps: int, parity: int, rng,
+              J: int = 8) -> dict:
+    """PFB kernel vs plain version on the card, warm and cold times, and
+    the roofline of the case."""
     from cubicsdr_tpu_torch.ops.channelizer import ChannelizerPFB2
     from cubicsdr_tpu_torch.ops.kernels.pfb import (
-        pfbch2_planar, pfbch2_planar_plain)
-    ch = ChannelizerPFB2(M).to(dev)
-    z = torch.from_numpy(rng.standard_normal(
-        (2, ch.hist_len + n_steps * ch.D)).astype(np.float32)).to(dev)
-    args = (z[0], z[1], ch.h_poly, ch.w_re, ch.w_im, ch.c_re, ch.c_im,
-            torch.tensor(parity, dtype=torch.int32, device=dev))
-    got = pfbch2_planar(*args)
-    ref = pfbch2_planar_plain(*args)
+        pfb_form, pfb_plan, pfbch2_planar, pfbch2_planar_plain)
+    ch = ChannelizerPFB2(M, taps_per_channel=J).to(dev)
+    z_len = ch.hist_len + n_steps * ch.D
+    par = torch.tensor(parity, dtype=torch.int32, device=dev)
+    consts = (ch.h_poly, ch.w_re, ch.w_im, ch.c_re, ch.c_im, par)
+    planes = [(randn(rng, z_len, dev), randn(rng, z_len, dev))]
+    got = pfbch2_planar(*planes[0], *consts)
+    ref = pfbch2_planar_plain(*planes[0], *consts)
     torch.cuda.synchronize()
     err = max_err(got, ref)
     if not err <= PFB_ATOL:
         raise AssertionError(f"PFB M={M}: kernel vs plain max err {err}")
-    return err, cuda_ms(lambda: pfbch2_planar(*args)), \
-        cuda_ms(lambda: pfbch2_planar_plain(*args))
+    nbytes = 4 * (2 * z_len + 2 * M * n_steps + M * ch.J)
+    # Per step: the FIR (2 planes x M*J FMAs, 2 flops each), then the
+    # form's own transform: (M/2) log2 M radix-2 butterflies (a complex
+    # product and two complex sums, 10 flops) and c_k (6 flops per
+    # output); or M*M complex MACs (8 flops).
+    form = pfb_form(M, ch.J)
+    transform = (10 * (M // 2) * (M.bit_length() - 1) + 6 * M
+                 if form == "fft" else 8 * M * M)
+    flops = (4 * M * ch.J + transform) * n_steps
+
+    def make(i):
+        while len(planes) <= i:
+            planes.append((randn(rng, z_len, dev), randn(rng, z_len, dev)))
+        zr, zi = planes[i]
+        return lambda: pfbch2_planar(zr, zi, *consts)
+
+    cold, k = cold_ms(make, nbytes)
+    return {"M": M, "J": ch.J, "n_steps": n_steps, "parity": parity,
+            "form": form,
+            "steps_per_tile": pfb_plan(M, ch.J)[0], "max_abs_err": err,
+            "warm_ms": cuda_ms(make(0)), "cold_ms": cold, "cold_sets": k,
+            "plain_ms": cuda_ms(lambda: pfbch2_planar_plain(*planes[0],
+                                                            *consts)),
+            **roofline(flops, nbytes, cold)}
 
 
-def check_route(dev, M: int, N: int, chan_len: int, rng):
-    """Route kernel vs plain version; returns (err, ms, plain_ms)."""
+def check_route(dev, P: int, Q: int, N: int, chan_len: int, rng,
+                M: int = 16) -> dict:
+    """Route kernel vs plain version, warm and cold times, roofline."""
     from cubicsdr_tpu_torch.ops.kernels.route import (
-        _tables, choose_fused_tile, routed_shifted_resample,
-        routed_shifted_resample_plain)
+        _tables, choose_fused_tile, route_plan, route_taps,
+        routed_shifted_resample, routed_shifted_resample_plain)
     from cubicsdr_tpu_torch.ops.resample import RationalResampler
-    rs = RationalResampler(1, 5, batch_shape=(N,)).to(dev)
-    O = choose_fused_tile(chan_len // 5, 1, 5)
+    rs = RationalResampler(P, Q, batch_shape=(N,)).to(dev)
+    n_out = chan_len // Q * P
+    O = choose_fused_tile(n_out, P, Q)
     toep, S, W = rs.toeplitz(O)
-    z = torch.from_numpy(rng.standard_normal(
-        (2, M, rs.hist_len + chan_len)).astype(np.float32)).to(dev)
-    ci = torch.from_numpy((np.arange(N) * 7 % M).astype(np.int32)).to(dev)
+    total = rs.hist_len + chan_len
+    ci_np = (np.arange(N) * 7 % M).astype(np.int32)
+    ci = torch.from_numpy(ci_np).to(dev)
     om = torch.from_numpy(rng.uniform(-1.5, 1.5, N).astype(np.float32)
                           ).to(dev)
     pw0 = torch.from_numpy(rng.uniform(0, 6.28, N).astype(np.float32)
                            ).to(dev)
     start = rs.hist_len + rs.Q - 1 - (rs.KK - 1)
+    planes = [(randn(rng, (M, total), dev), randn(rng, (M, total), dev))]
 
-    def kernel():
-        return routed_shifted_resample(z[0], z[1], ci, om, pw0, rs, toep)
+    def make(i):
+        while len(planes) <= i:
+            planes.append((randn(rng, (M, total), dev),
+                           randn(rng, (M, total), dev)))
+        zr, zi = planes[i]
+        return lambda: routed_shifted_resample(zr, zi, ci, om, pw0, rs, toep)
 
     def plain():
         e_re, e_im, a1, a64 = _tables(om, W, S)
-        return routed_shifted_resample_plain(z[0], z[1], ci, e_re, e_im,
+        return routed_shifted_resample_plain(*planes[0], ci, e_re, e_im,
                                              pw0, a1, a64, toep, S, start)
 
-    err = max_err(kernel(), plain())
+    err = max_err(make(0)(), plain())
     if not err <= ROUTE_ATOL:
-        raise AssertionError(f"route N={N}: kernel vs plain max err {err}")
-    return err, cuda_ms(kernel), cuda_ms(plain)
+        raise AssertionError(f"route {P}/{Q} N={N}: kernel vs plain max err "
+                             f"{err}")
+    # Each referenced channel read once, each output written once; per
+    # output the FMAs of its phase's nonzero taps on both planes, plus the
+    # complex modulation of each input sample of each demod.
+    nnz = int(np.count_nonzero(rs.ker_np))
+    nbytes = (8 * len(set(ci_np.tolist())) * total + 8 * N * n_out
+              + 12 * N + 4 * rs.ker_np.size)
+    flops = 4 * N * (n_out // P) * nnz + 6 * N * chan_len
+    cold, k = cold_ms(make, nbytes)
+    tb, groups, cq, keep_e, smem = route_plan(
+        P, Q, O, rs.KK, route_taps(rs.ker_np, Q)[0].shape[-1])
+    return {"P": P, "Q": Q, "N": N, "M": M, "chan_len": chan_len, "O": O,
+            "plan": {"tiles_per_batch": tb, "residue_groups": groups,
+                     "residues_per_pass": cq, "e_resident": keep_e,
+                     "smem_bytes": smem},
+            "max_abs_err": err, "warm_ms": cuda_ms(make(0)), "cold_ms": cold,
+            "cold_sets": k, "plain_ms": cuda_ms(plain),
+            **roofline(flops, nbytes, cold)}
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per compiled kernel instance from nvcc's -Xptxas -v
+    report: its name and the registers, stack and spills ptxas states."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            raw = ln.split("'")[1]
+            name = next((k for k in ("route_kernel", "pfbch2_kernel")
+                         if k in raw), raw)
+            if name in raw:        # keep the template arguments
+                name += raw.split(name, 1)[1].split("EEv", 1)[0]
+        elif name and ("Used" in ln or "spill" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def build_pipeline(n_demods: int, dev, use_kernels: bool, block=BLOCK):
@@ -188,9 +323,13 @@ def check_main_path(dev, n_demods: int = 16, block: int = BLOCK):
     iq = synth_fm(freqs[:15], 3 * block, FS, dev, seed=1)
     blocks = [iq[:, b * block:(b + 1) * block].contiguous()
               for b in range(3)]
-    rx = build_pipeline(n_demods, dev, True, block)
-    if rx.fused_route != [True]:
-        raise AssertionError("the main path did not take the fused route")
+    from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+    # Built with the entry point's defaults: the card and both kernels.
+    rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, n_demods)],
+                          block_len=block)
+    if rx.fused_route != [True] or rx.device.type != "cuda":
+        raise AssertionError("the default pipeline is not on the card's "
+                             "fused kernel path")
     controls = rx.control_template()
     controls[0]["frequency"] = freqs
     torch.cuda.synchronize()
@@ -483,29 +622,47 @@ def main() -> int:
          f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.load_library()
+    lib = build.load_library()
     line(f"build: {time.perf_counter() - t0:.2f} s -> "
          f"{build.library_path().relative_to(build.PKG_DIR.parent)}")
 
+    for ln in ptxas_lines(lib.build_log):
+        line(f"ptxas: {ln}")
+    from cubicsdr_tpu_torch import native
+    line(f"ring backend: {native.backend()}")
+
     rng = np.random.default_rng(0)
     pfb_cases, route_cases = [], []
-    for M, n_steps, parity in ((16, BLOCK // 8, 0), (6, BLOCK // 8, 0),
-                               (10, 12345, 1)):
-        err, ms, pms = check_pfb(dev, M, n_steps, parity, rng)
-        pfb_cases.append({"M": M, "n_steps": n_steps, "max_abs_err": err,
-                          "ms": ms, "plain_ms": pms})
-        line(f"pfb M={M} steps={n_steps} parity={parity}: max_abs_err "
-             f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    for N in (16, 256):
-        err, ms, pms = check_route(dev, 16, N, BLOCK // 8, rng)
-        route_cases.append({"N": N, "M": 16, "chan_len": BLOCK // 8,
-                            "max_abs_err": err, "ms": ms, "plain_ms": pms})
-        line(f"route N={N} M=16 chan_len={BLOCK // 8}: max_abs_err "
-             f"{err:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    for M, n_steps, parity, J in (
+            (16, BLOCK // 8, 0, 8), (6, BLOCK // 8, 0, 8), (10, 12345, 1, 8),
+            (20, BLOCK // 10, 0, 8), (40, BLOCK // 20, 1, 8),
+            (64, BLOCK // 32, 0, 8), (6, 9999, 1, 12)):
+        c = check_pfb(dev, M, n_steps, parity, rng, J)
+        pfb_cases.append(c)
+        line(f"pfb M={M} J={J} steps={n_steps} parity={parity} "
+             f"({c['form']}, T={c['steps_per_tile']}): max_abs_err "
+             f"{c['max_abs_err']:.3g}; cold {c['cold_ms']:.4f} ms, warm "
+             f"{c['warm_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; bound "
+             f"{c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+             f"{c['roofline_share']:.3f}, {c['achieved_gb_per_s']:.0f} GB/s"
+             f" [{smi}]")
+    for P, Q, N, chan_len in ((1, 5, 16, BLOCK // 8), (1, 5, 256, BLOCK // 8),
+                              (2, 5, 16, BLOCK // 8), (1, 4, 16, BLOCK // 8),
+                              (3, 5, 16, BLOCK // 8), (1, 40, 16, BLOCK // 8),
+                              (1, 128, 16, 131072)):
+        c = check_route(dev, P, Q, N, chan_len, rng)
+        route_cases.append(c)
+        line(f"route {P}/{Q} N={N} O={c['O']} chan_len={chan_len} "
+             f"plan {json.dumps(c['plan'])}: "
+             f"max_abs_err {c['max_abs_err']:.3g}; cold {c['cold_ms']:.4f}"
+             f" ms, warm {c['warm_ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+             f"ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+             f"{c['roofline_share']:.3f}, "
+             f"{c['achieved_tflop_per_s']:.2f} TFLOP/s [{smi}]")
 
     launches, worst = check_main_path(dev)
     line(f"main path demod16 x3 blocks: launches {launches}, vs CPU "
-         f"{json.dumps(worst)}")
+         f"{json.dumps(worst)} [{smi}]")
 
     for n in (16, 256):
         for kern in (True, False):
@@ -516,7 +673,7 @@ def main() -> int:
 
     live_launches, live = check_live(dev)
     line(f"live loop demod16 x{LIVE_BLOCKS} blocks: launches "
-         f"{live_launches}, vs CPU {json.dumps(live)}")
+         f"{live_launches}, vs CPU {json.dumps(live)} [{smi}]")
 
     rx = build_pipeline(16, dev, True)
     for row, dt in (("live16", np.float32), ("live16_int16", np.int16),
@@ -524,23 +681,25 @@ def main() -> int:
         r = live_throughput(rx, dt)
         line(json.dumps({"row": row, **r, "block_len": BLOCK, "card": smi}))
 
+    def kernel_row(name, source, replaces, cases):
+        main = cases[0]           # the main path's shape (demod16)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "live_launches": live_launches[name],
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": main["cold_ms"], "cold_ms": main["cold_ms"],
+                "warm_ms": main["warm_ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "roofline_share": main["roofline_share"],
+                "library_ms": None, "library": LIBRARY_NOTE[name],
+                "card": smi, "cases": cases}
+
     kernels = [
-        {"name": "pfbch2_planar", "route": "cuda",
-         "source": "cubicsdr_tpu_torch/csrc/pfb.cu",
-         "replaces": "cubicsdr_tpu/ops/pallas/pfb.py:110",
-         "launches": launches["pfbch2_planar"],
-         "live_launches": live_launches["pfbch2_planar"],
-         "max_abs_err": max(c["max_abs_err"] for c in pfb_cases),
-         "ms": pfb_cases[0]["ms"], "plain_ms": pfb_cases[0]["plain_ms"],
-         "cases": pfb_cases},
-        {"name": "routed_shifted_resample", "route": "cuda",
-         "source": "cubicsdr_tpu_torch/csrc/route.cu",
-         "replaces": "cubicsdr_tpu/ops/pallas/route.py:161",
-         "launches": launches["routed_shifted_resample"],
-         "live_launches": live_launches["routed_shifted_resample"],
-         "max_abs_err": max(c["max_abs_err"] for c in route_cases),
-         "ms": route_cases[0]["ms"], "plain_ms": route_cases[0]["plain_ms"],
-         "cases": route_cases},
+        kernel_row("pfbch2_planar", "cubicsdr_tpu_torch/csrc/pfb.cu",
+                   "cubicsdr_tpu/ops/pallas/pfb.py:110", pfb_cases),
+        kernel_row("routed_shifted_resample",
+                   "cubicsdr_tpu_torch/csrc/route.cu",
+                   "cubicsdr_tpu/ops/pallas/route.py:161", route_cases),
     ]
     line(json.dumps({"kernels": kernels}))
     line(json.dumps({"ok": True, "device": {

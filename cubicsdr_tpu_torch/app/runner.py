@@ -43,8 +43,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from cubicsdr_tpu.io.recorder import RecordingSink, SquelchOption
-from cubicsdr_tpu.native import SampleRing
+from cubicsdr_tpu_torch.io.recorder import RecordingSink, SquelchOption
+from cubicsdr_tpu_torch.native import SampleRing
 from cubicsdr_tpu_torch.ops.planar import PC
 from cubicsdr_tpu_torch.utils.metrics import Metrics
 from cubicsdr_tpu_torch.utils.tree import tree_map
@@ -249,7 +249,7 @@ class LiveReceiver:
 
     # --- producer: source -> ring (the SDRThread readLoop analog) ---
     def _produce(self, source, gen: int):
-        from cubicsdr_tpu.io.soapy import DeviceLostError
+        from cubicsdr_tpu_torch.io.soapy import DeviceLostError
         try:
             for blk in source:
                 if self._stop.is_set() or gen != self._producer_gen:
@@ -634,7 +634,7 @@ class LiveReceiver:
         backend None removes. ``rate``: the sink's own sample rate,
         resampled host-side from the pipeline rate (ref: src/audio/
         AudioThread.cpp:493-506)."""
-        from cubicsdr_tpu.io.audio_out import AudioOutput, HostResampler
+        from cubicsdr_tpu_torch.io.audio_out import AudioOutput, HostResampler
         old = self.audio_sinks.pop(name, None)
         if old is not None:
             old["output"].close()

@@ -3,7 +3,8 @@
 All ``csrc/*.cu`` sources compile into ONE shared library with a plain C
 interface (no PyTorch headers: seconds, not minutes, of nvcc), at first
 use, into ``cubicsdr_tpu_torch/_build/`` under a name that hashes the
-sources and flags. Pointers are passed from ``tensor.data_ptr()`` and the
+sources and flags: one nvcc per source, all started together, then one
+link. Pointers are passed from ``tensor.data_ptr()`` and the
 stream from ``torch.cuda.current_stream().cuda_stream``; each launch
 function returns ``cudaGetLastError()``.
 """
@@ -21,18 +22,18 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 # extern "C" entry points: name -> argtypes (restype int = cudaError_t).
 _SIGNATURES = {
-    "pfbch2_planar_launch": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _P],
+    "pfbch2_planar_launch": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _P,
+                             _P, _P, _I, _I, _I, _I, _P],
     "routed_shifted_resample_launch": [_P, _P, _L, _P, _P, _P, _P, _P, _P,
-                                       _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _P],
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -61,15 +62,31 @@ def load_library():
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        srcs = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs],
-                              capture_output=True, text=True)
+        tag = f"{so.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for obj, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{out}")
+        tmp = so.with_name(f"{tag}.so.tmp")
+        objs = [str(obj) for obj, _ in jobs]
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *objs], capture_output=True, text=True)
+        for obj in objs:
+            os.remove(obj)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
-        log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -77,8 +94,6 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.cubicsdr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cubicsdr_cuda_error_string.restype = ctypes.c_char_p
-    lib.pfbch2_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.pfbch2_smem_bytes.restype = ctypes.c_size_t
     lib.build_log = log
     return lib
 
@@ -95,8 +110,9 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t, name: str, device, dtype, shape=None) -> None:
-    """Validate a kernel operand: device, dtype, shape, contiguity."""
+def require(t, name: str, device, dtype, shape=None, align: int = 0) -> None:
+    """Validate a kernel operand: device, dtype, shape, contiguity and,
+    for operands read with 16-byte copies, the address alignment."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -106,3 +122,5 @@ def require(t, name: str, device, dtype, shape=None) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")

@@ -48,19 +48,28 @@ class DemodGroupSpec:
 
 
 class ReceiverPipeline(StreamOp):
-    """Fixed-plan receiver on ``device``.
+    """Fixed-plan receiver on ``device``, the card unless the caller asks
+    for the host.
 
     Constructor arguments are the JAX package's, with ``use_kernels`` for
     ``use_pallas`` (the hand-written CUDA kernels instead of the Pallas
-    ones; on CPU data their plain versions run) and an explicit
-    ``device``. Only ``chan_mode='pfbch2'`` and ``dtype=PLANAR`` exist in
-    the port so far."""
+    ones; on CPU data their plain versions run) and ``device``. Both
+    default to the card's path: ``device="cuda"`` raises where there is no
+    CUDA device (pass ``device="cpu"`` to run on the host), and
+    ``use_kernels=True`` (pass False for the plain path, the JAX package's
+    ``use_pallas=False``). Only ``chan_mode='pfbch2'`` and
+    ``dtype=PLANAR`` exist in the port so far."""
 
     def __init__(self, sample_rate: float, groups: list[DemodGroupSpec],
                  chan_mode: str = "pfbch2", num_channels: int | None = None,
                  audio_rate: int = 48000, block_len: int | None = None,
-                 dtype=PLANAR, use_kernels: bool = False, device=None):
+                 dtype=PLANAR, use_kernels: bool = True, device="cuda"):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ReceiverPipeline runs on the card by default and this host "
+                "has no CUDA device; pass device='cpu' to run on the host")
         if chan_mode != "pfbch2" or dtype != PLANAR:
             raise ValueError("the port has chan_mode='pfbch2' with "
                              "dtype=PLANAR only")

@@ -40,7 +40,7 @@ def stream():
     mgr = DemodulatorMgr()
     mgr.new_demodulator(100e6 + 200e3, "FM", 200000)
     specs, keyed = plan_from_manager(mgr)
-    rx = ReceiverPipeline(FS, specs)
+    rx = ReceiverPipeline(FS, specs, use_kernels=False, device="cpu")
     controls = controls_from_manager(mgr, rx, keyed, 100e6)
     rxj = JPipeline(FS, [JSpec("FM", 200000, 1)], dtype=JPLANAR,
                     block_len=rx.block_len)
@@ -128,9 +128,11 @@ def test_port_checkpoint_resumes_in_jax(stream, tmp_path):
 
 
 def test_checkpoint_shape_mismatch_detected(tmp_path):
-    rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 1)])
+    rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 1)],
+                          device="cpu")
     p = str(tmp_path / "c.npz")
     save_state(p, rx.init_state())
-    rx2 = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 2)])
+    rx2 = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 2)],
+                           device="cpu")
     with pytest.raises(ValueError, match="plan changed"):
         load_state(p, rx2.init_state())

@@ -121,3 +121,103 @@ def test_wrapper_runs_plain_version_on_cpu(rng):
     for a, b in zip(pfbch2_planar(*args), pfbch2_planar_plain(*args)):
         assert torch.equal(a, b)
     assert pfbch2_planar.launches == before
+
+
+def _kernel_order(ch, z, parity):
+    """The CUDA kernel's arithmetic, in its order, from the host layouts it
+    reads: the J-tap FIR per branch, then the form ``pfb_form`` picks: a
+    radix-2 DIT FFT on bit-reversed branch sums with the folded twiddles
+    and c_k, or the DFT with F = c_k W (both from
+    ``pfb_transform_consts``), or the product with F folded in float32 from
+    the channelizer's (w, c), summed over branches in order; then the
+    flip."""
+    from cubicsdr_tpu_torch.ops.kernels.pfb import (
+        pfb_form, pfb_transform_consts)
+    M, J, D = ch.M, ch.J, ch.D
+    zr, zi = torch.from_numpy(z[0]), torch.from_numpy(z[1])
+    n_steps = (zr.shape[-1] - ch.hist_len) // D
+    s = torch.arange(n_steps)
+    rho = torch.arange(M)
+    u_re = torch.zeros((M, n_steps))
+    u_im = torch.zeros((M, n_steps))
+    for j in range(J):
+        p = (s[None, :] + 2 * (J - 1 - j)) * D + M - 1 - rho[:, None]
+        u_re = u_re + ch.h_poly[:, j:j + 1] * zr[p]
+        u_im = u_im + ch.h_poly[:, j:j + 1] * zi[p]
+    form = pfb_form(M, J)
+    if form == "fft":
+        v = torch.from_numpy(pfb_transform_consts(M)).reshape(-1, 2)
+        assert v.shape == (3 * M // 2, 2)
+        bits = M.bit_length() - 1
+        rev = [int(format(i, f"0{bits}b")[::-1], 2) for i in range(M)]
+        ar, ai = list(u_re[rev]), list(u_im[rev])
+        span = 2
+        while span <= M:
+            half = span // 2
+            for i in range(0, M, span):
+                for j in range(half):
+                    a, b, w = i + j, i + j + half, j * (M // span)
+                    wr, wi = v[w]
+                    tr = wr * ar[b] - wi * ai[b]
+                    ti = wr * ai[b] + wi * ar[b]
+                    ar[b], ai[b] = ar[a] - tr, ai[a] - ti
+                    ar[a], ai[a] = ar[a] + tr, ai[a] + ti
+            span *= 2
+        c = v[M // 2:]
+        y_re = torch.stack([ar[k] * c[k, 0] - ai[k] * c[k, 1]
+                            for k in range(M)])
+        y_im = torch.stack([ar[k] * c[k, 1] + ai[k] * c[k, 0]
+                            for k in range(M)])
+    elif form == "dft":
+        F = torch.from_numpy(pfb_transform_consts(M)).reshape(M, M, 2)
+        y_re = F[..., 0] @ u_re - F[..., 1] @ u_im
+        y_im = F[..., 0] @ u_im + F[..., 1] @ u_re
+    else:
+        cr, ci = ch.c_re[:, None], ch.c_im[:, None]
+        f_re = cr * ch.w_re - ci * ch.w_im
+        f_im = cr * ch.w_im + ci * ch.w_re
+        y_re = torch.zeros((M, n_steps))
+        y_im = torch.zeros((M, n_steps))
+        for r in range(M):
+            y_re = y_re + f_re[:, r:r + 1] * u_re[r] - f_im[:, r:r + 1] * u_im[r]
+            y_im = y_im + f_re[:, r:r + 1] * u_im[r] + f_im[:, r:r + 1] * u_re[r]
+    odd = ((s + parity) % 2)[None, :] * (rho % 2)[:, None]
+    sign = (1 - 2 * odd).float()
+    return (y_re * sign).numpy(), (y_im * sign).numpy()
+
+
+@pytest.mark.parametrize("M,n_steps,parity,J", [
+    (16, 640, 0, 8), (6, 256, 0, 8), (10, 253, 1, 8), (16, 127, 1, 8),
+    (8, 300, 1, 8), (20, 300, 1, 8), (40, 129, 0, 8), (64, 200, 1, 8),
+    (6, 101, 1, 12)])
+def test_kernel_layout_matches_plain(rng, M, n_steps, parity, J):
+    """The CUDA kernel's host layouts, evaluated in its order (FFT for
+    M = 8, 16, 64; DFT for M = 6, 10; the product with F = c_k W for
+    M = 20, 40 and for a channelizer with 12 taps per branch), equal the
+    plain version, odd step counts and parity included, atol 2e-4."""
+    from cubicsdr_tpu_torch.ops.kernels.pfb import pfb_form
+    ch = ChannelizerPFB2(M, taps_per_channel=J)
+    assert ch.J == J
+    assert pfb_form(M, J) == ("product" if M > 16 and M & (M - 1)
+                              or J != 8 else "fft" if M & (M - 1) == 0
+                              else "dft")
+    z = _iq(rng, ch.hist_len + n_steps * ch.D)
+    kr, ki = _kernel_order(ch, z, parity)
+    pr, pi = _plain(ch, z, parity)
+    assert kr.shape == (M, n_steps)
+    np.testing.assert_allclose(kr, pr.numpy(), atol=ATOL)
+    np.testing.assert_allclose(ki, pi.numpy(), atol=ATOL)
+
+
+def test_plan_fits_every_source_rate():
+    """The kernel's tile and shared memory fit an sm_90 block for the
+    channel count of every source rate up to 64 MS/s (M = 2 .. 128); the
+    main path's M = 16 keeps 128-step tiles with two or more blocks per
+    SM."""
+    from cubicsdr_tpu_torch.io.sources import optimal_channel_count
+    from cubicsdr_tpu_torch.ops.kernels.pfb import SMEM_MAX, pfb_plan
+    for fs in range(500_000, 64_000_001, 500_000):
+        M = optimal_channel_count(fs)
+        T, nbytes = pfb_plan(M, 8)
+        assert T in (32, 64, 128) and nbytes <= SMEM_MAX
+    assert pfb_plan(16, 8) == (128, 36224)

@@ -125,7 +125,7 @@ def scenario(interp):
 
 def port_pipeline(kernels, L, n=N_DEMODS):
     return ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, n)],
-                            use_kernels=kernels, block_len=L)
+                            use_kernels=kernels, block_len=L, device="cpu")
 
 
 @pytest.mark.parametrize("kernels", [True, False])
@@ -235,3 +235,36 @@ def test_wbfm_tone_snr():
     _, ys = scan_blocks(chain, chain.init_state(), x)
     audio = ys.reshape(-1).numpy()[4800:]
     assert tone_snr(audio, f_aud, 48e3) > 40
+
+
+def test_default_device_is_the_card():
+    """Built without ``device``, the pipeline is on the card with both
+    kernels; a host with no CUDA device raises instead of falling back to
+    the CPU. Decided here, at run time, not at collection."""
+    specs = [DemodGroupSpec("FM", 200000, 2)]
+    if torch.cuda.is_available():
+        rx = ReceiverPipeline(FS, specs)
+        assert rx.device.type == "cuda" and rx.use_kernels
+        assert rx.fused_route == [True]
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ReceiverPipeline(FS, specs)
+
+
+def test_cpu_pipeline_with_default_kernels_matches_explicit(scenario):
+    """``device="cpu"`` with the default ``use_kernels`` is the kernel
+    path's plain versions, bit for bit the pipeline built with
+    ``use_kernels=True`` explicitly (and so the JAX Pallas path's match
+    above)."""
+    L = scenario["L"]
+    rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, N_DEMODS)],
+                          block_len=L, device="cpu")
+    assert rx.device.type == "cpu" and rx.fused_route == [True]
+    ref = scenario[True]
+    outs, _ = run_port(rx, rx.init_state(), scenario["blocks"][:2],
+                       ref["controls"])
+    exp, _ = run_port(port_pipeline(True, L), rx.init_state(),
+                      scenario["blocks"][:2], ref["controls"])
+    for a, b in zip(outs, exp):
+        assert torch.equal(a["mix"], b["mix"])
+        assert torch.equal(a["groups"][0]["iq"].re, b["groups"][0]["iq"].re)

@@ -36,7 +36,8 @@ def _case(rng, M, N, chan_idx=None, Lc=5 * 128 * 8 * 5):
 
 
 def _port(rs, z, chan_idx, omega, phase_w0):
-    O = choose_fused_tile(z.shape[-1] - rs.hist_len, rs.P, rs.Q)
+    n_out = (z.shape[-1] - rs.hist_len) // rs.Q * rs.P
+    O = choose_fused_tile(n_out, rs.P, rs.Q)
     yr, yi = routed_shifted_resample(
         torch.from_numpy(z[0]), torch.from_numpy(z[1]),
         torch.from_numpy(chan_idx), torch.from_numpy(omega),
@@ -86,3 +87,144 @@ def test_fused_tile_rule_is_the_reference_rule():
     for n_out in (25600, 6400, 88000, 1000, 12800):
         for P, Q in ((1, 5), (1, 4), (2, 3), (6, 25)):
             assert choose_fused_tile(n_out, P, Q) == j_choose(n_out, P, Q)
+
+
+def _kernel_order(rs, z, chan_idx, omega, phase_w0):
+    """The CUDA kernel's arithmetic, in its order, from the host layouts it
+    reads (``route_taps``, ``route_plan``): modulate each tile window by E,
+    split it into Q stride-Q sub-streams; residue group k accumulates
+    kp[r, c, a] * x_c[lb + a] over its residues (every RS-th row of each
+    pass of CQ rows), then a; the groups' sums are added in group order,
+    and each tile is rotated by its phase."""
+    from cubicsdr_tpu_torch.ops.kernels.route import (
+        _tables, route_plan, route_taps)
+    from cubicsdr_tpu_torch.ops.resample import _windows
+    P, Q, KK = rs.P, rs.Q, rs.KK
+    Lc = z.shape[-1] - rs.hist_len
+    O = choose_fused_tile(Lc // Q * P, P, Q)
+    Ob, S = O // P, (O // P) * Q
+    W = (Ob - 1) * Q + KK
+    start = rs.hist_len + Q - 1 - (KK - 1)
+    n_rows = Lc // Q * P // O
+    om = torch.from_numpy(omega)
+    e_re, e_im, a1, a64 = _tables(om, W, S)
+    idx = torch.from_numpy(chan_idx).long()
+    w_re = _windows(torch.from_numpy(z[0]), start, n_rows, S, W)[idx]
+    w_im = _windows(torch.from_numpy(z[1]), start, n_rows, S, W)[idx]
+    xm_re = w_re * e_re[:, None] - w_im * e_im[:, None]     # [N, rows, W]
+    xm_im = w_im * e_re[:, None] + w_re * e_im[:, None]
+    kp, U = route_taps(rs.ker_np, Q)
+    A = kp.shape[-1]
+    assert A % U == 0 and A >= -(-KK // Q)
+    kp = torch.from_numpy(kp)
+    Lrow = Ob + A
+    pad = Lrow * Q - W
+    xm_re = torch.nn.functional.pad(xm_re, (0, pad))
+    xm_im = torch.nn.functional.pad(xm_im, (0, pad))
+    N = len(chan_idx)
+    _, RS, CQ, _, _ = route_plan(P, Q, O, KK, A)
+    groups = []
+    for k in range(RS):
+        acc_re = torch.zeros((N, n_rows, P, Ob))
+        acc_im = torch.zeros((N, n_rows, P, Ob))
+        for c0 in range(0, Q, CQ):
+            for c in range(c0 + k, min(Q, c0 + CQ), RS):
+                xc_re = xm_re[..., c::Q]                      # [N, rows, Lrow]
+                xc_im = xm_im[..., c::Q]
+                for a in range(A):
+                    t = kp[:, c, a][:, None]                  # [P, 1]
+                    acc_re = acc_re + t * xc_re[..., None, a:a + Ob]
+                    acc_im = acc_im + t * xc_im[..., None, a:a + Ob]
+        groups.append((acc_re, acc_im))
+    acc_re, acc_im = groups[0]
+    for g_re, g_im in groups[1:]:
+        acc_re, acc_im = acc_re + g_re, acc_im + g_im
+    g = torch.arange(n_rows)
+    phi = torch.remainder(
+        torch.from_numpy(phase_w0)[:, None]
+        + a64[:, None] * torch.div(g, 64, rounding_mode="floor").float()
+        + a1[:, None] * (g % 64).float(), 6.283185307179586)
+    c_, s_ = torch.cos(phi)[..., None, None], torch.sin(phi)[..., None, None]
+    y_re = acc_re * c_ - acc_im * s_
+    y_im = acc_im * c_ + acc_re * s_
+    # [N, rows, P, Ob] -> output index lb*P + r within each tile.
+    return (y_re.transpose(-1, -2).reshape(N, -1).numpy(),
+            y_im.transpose(-1, -2).reshape(N, -1).numpy())
+
+
+@pytest.mark.parametrize("P,Q,Lc", [(1, 5, 5 * 128 * 8), (2, 5, 640 * 8),
+                                    (1, 4, 4 * 128 * 10), (3, 5, 640 * 8),
+                                    (1, 40, 40 * 128 * 2)])
+def test_kernel_layout_matches_plain(rng, P, Q, Lc):
+    """The CUDA kernel's polyphase tap layout, evaluated in its summation
+    order, equals the plain version (route 1/5 on the main path, 2/5 with
+    two output phases, 1/4 with even Q, 3/5 with a tap count the kernel
+    walks in a runtime loop, 1/40 at NBFM's shape, whose residues the
+    kernel splits over 16 thread groups), atol 5e-5."""
+    N, M = 16, 16
+    rs = RationalResampler(P, Q, batch_shape=(N,))
+    z = rng.standard_normal((2, M, rs.hist_len + Lc)).astype(np.float32)
+    ci = (np.arange(N) * 7 % M).astype(np.int32)
+    omega = rng.uniform(-1.5, 1.5, N).astype(np.float32)
+    pw0 = rng.uniform(0, 6.28, N).astype(np.float32)
+    kr, ki = _kernel_order(rs, z, ci, omega, pw0)
+    yr, yi = _port(rs, z, ci, omega, pw0)
+    assert kr.shape == yr.shape == (N, Lc // Q * P)
+    np.testing.assert_allclose(kr, yr, atol=5e-5)
+    np.testing.assert_allclose(ki, yi, atol=5e-5)
+
+
+def test_route_taps_hold_every_tap_once():
+    """Each kernel tap appears exactly once in the layout, at
+    kp[r, c, a] with a*Q + c = KK-1-t; the padding is zero."""
+    from cubicsdr_tpu_torch.ops.kernels.route import route_taps
+    for P, Q in ((1, 5), (2, 5), (1, 4), (6, 25), (3, 2)):
+        rs = RationalResampler(P, Q)
+        kp, U = route_taps(rs.ker_np, Q)
+        KK = rs.KK
+        assert kp.shape[:2] == (P, Q) and kp.shape[2] % U == 0
+        back = np.zeros_like(rs.ker_np)
+        for c in range(Q):
+            for a in range(kp.shape[2]):
+                s = a * Q + c
+                if s <= KK - 1:
+                    back[:, KK - 1 - s] = kp[:, c, a]
+                else:
+                    assert not kp[:, c, a].any()
+        np.testing.assert_array_equal(back, rs.ker_np)
+
+
+@pytest.mark.parametrize("modem,bandwidth", [("FM", 200000),
+                                             ("NBFM", 12500)])
+def test_route_plan_fits_every_fused_group(modem, bandwidth):
+    """Every group the pipeline fuses, at common SDR rates, gets a
+    shared-memory plan within the 227 KB an sm_90 block may hold; the FM
+    path keeps its whole batch of 8 tiles, every residue and the E table,
+    and NBFM (first stage 1/40 or 1/64) is fused, fits, and fills 256
+    threads with residue groups."""
+    from cubicsdr_tpu_torch.ops.kernels.route import (
+        SMEM_MAX, route_plan, route_taps)
+    from cubicsdr_tpu_torch.receiver import (
+        DemodGroupSpec, ReceiverPipeline)
+    fused_q = set()
+    for fs in (2_400_000, 8_000_000, 10_000_000, 20_000_000):
+        rx = ReceiverPipeline(fs, [DemodGroupSpec(modem, bandwidth, 2)],
+                              device="cpu")
+        for fe, fused in zip(rx.frontends, rx.fused_route):
+            if not fused:
+                continue
+            rs = fe._stage1
+            kp, _ = route_taps(rs.ker_np, rs.Q)
+            tb, groups, cq, keep_e, nbytes = route_plan(
+                rs.P, rs.Q, fe.tile, rs.KK, kp.shape[-1])
+            assert nbytes <= SMEM_MAX and 1 <= groups <= cq <= rs.Q
+            threads = tb * groups * rs.P * -(-fe.tile // rs.P // 8)
+            assert keep_e
+            if rs.Q <= 5:
+                assert (groups, cq, threads) == (1, rs.Q, 128)
+            else:
+                assert tb == 1 and threads == 256
+            fused_q.add(rs.Q)
+    assert fused_q, "no group was fused"
+    if modem == "NBFM":
+        assert max(fused_q) >= 40

@@ -49,7 +49,8 @@ def build(pkg, freqs=(200e3,)):
     for f in freqs:
         mgr.new_demodulator(100e6 + f, "FM", 200000)
     specs, keyed = pkg.plan_from_manager(mgr)
-    kw = {"dtype": JPLANAR} if pkg is J else {}
+    kw = ({"dtype": JPLANAR} if pkg is J
+          else {"device": "cpu", "use_kernels": False})
     rx = pkg.ReceiverPipeline(FS, specs, block_len=L, **kw)
     return rx, pkg.controls_from_manager(mgr, rx, keyed, 100e6)
 
@@ -278,8 +279,10 @@ def test_rate_only_swap_drops_stale_staged_block():
     the ring; the block staged from the old ring must be dropped, not run
     through the new plan."""
     rx1, ctl1 = build(T)
-    rx2 = T.ReceiverPipeline(1_200_000, rx1.groups, block_len=15000)
-    rx1 = T.ReceiverPipeline(FS, rx1.groups, block_len=15000)
+    rx2 = T.ReceiverPipeline(1_200_000, rx1.groups, block_len=15000,
+                             use_kernels=False, device="cpu")
+    rx1 = T.ReceiverPipeline(FS, rx1.groups, block_len=15000,
+                             use_kernels=False, device="cpu")
     assert rx1.block_len == rx2.block_len
     lr = LiveReceiver(rx1, ctl1, iter(()), waterfall_fft=256)
     z = np.zeros(15000, np.float32)
