@@ -20,7 +20,10 @@ Phases, each printing one line:
    at 16 and 256 demods over 128,000-sample channels, and 2/5, 1/4 and
    3/5 at 16, the last on the kernel's runtime-length tap loop, 1/40 at
    NBFM's shape, whose residues 16 thread groups split, and 1/128, whose E
-   table does not fit and is computed in each pass), each with
+   table does not fit and is computed in each pass; then scan58's new
+   shapes over 256,000-sample channels: AM's 3/50 at O=384 (runtime tap
+   loop, 5 residue groups) at 16 demods and CW/BPSK's 1/50 with 1,249
+   taps at 4 and 16), each with
    its device time warm (8 calls on one buffer set in a CUDA graph, the
    buffers L2-resident) and cold (a graph over distinct buffer sets totalling
    150 MB, 3x the L2), its bound (bytes over 3.35 TB/s or FLOPs over
@@ -33,7 +36,22 @@ Phases, each printing one line:
    versions), for the kernels' launch counts, and for a recovered tone;
 5. main-path throughput with device-resident IQ at 16 and 256 demods,
    with the kernels and with their plain versions;
-6. the live loop (``app.runner.LiveReceiver``: ring -> staged host->device
+6. scan58 (``utils/synth.py``: 8 MS/s, M=16, 58 demods in six groups,
+   FM, NBFM, AM, CW, BPSK and FM-stereo, every group on the fused route
+   kernel, 2,048,000-sample blocks), built with the pipeline's defaults,
+   3 blocks of a capture with a station under every demod, against the
+   same plan on the CPU: iq taps, mix and audio, levels at the main
+   path's gates, digital symbols equal wherever the CPU slicer's margin
+   between its two best scores is at least 1e-5, 3 PFB and 18 route
+   launches, and a tone above 40 dB through FM, NBFM and AM row 0;
+7. the coverage plans (2 demods per group, 2 blocks each) against the
+   CPU: I/Q with the nine constellation modems, DSB/USB/LSB and
+   FSK/GMSK (the last two plans on the gather path), so that every
+   registered modem runs on the card;
+8. the live loop on scan58's 3 blocks, on the card and the CPU: digital
+   symbols reach ``on_block`` as int32 and agree, mixes agree, both
+   kernels launch per block; then scan58's throughput row;
+9. the live loop (``app.runner.LiveReceiver``: ring -> staged host->device
    copy -> step -> packed post-step -> one device->host pull) at the same
    demod16 width: 6 blocks of the 16-station signal with two demods
    recording, a subset audio sink, the demod view on one row, the zoom
@@ -42,15 +60,16 @@ Phases, each printing one line:
    tolerances, waterfall lines at 2e-3, lines per block exactly), for
    both kernels' launch counts (6 each), no view or sink error and no
    ring drop;
-7. a checkpoint of the live loop's state after 3 blocks, saved, loaded
+10. a checkpoint of the live loop's state after 3 blocks, saved, loaded
    into a fresh receiver and run over blocks 4-6: its audio equals the
    uninterrupted run's within 1e-6;
-8. live-loop throughput (the JAX package's ``bench.py`` live rows: a
+11. live-loop throughput (the JAX package's ``bench.py`` live rows: a
    cycling source with back-pressure, 8 warm-up and 40 timed blocks) with
    float32, int16 and int8 ring formats.
 
-Then one JSON line describing the kernels (launches on the main path and
-the live path, error, cold/warm/plain ms, bound, roofline share; no
+Then one JSON line describing the kernels (launches on the demod16 main
+path and on every other path, error, cold/warm/plain ms, bound,
+roofline share; no
 single PyTorch call computes either function, so ``library_ms`` is null),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
@@ -75,6 +94,7 @@ FS = 8_000_000
 BLOCK = 1_024_000
 PFB_ATOL = 2e-4
 ROUTE_ATOL = 5e-5
+SCAN_CHAN = 256_000     # scan58's channel length: 2,048,000 / (16 / 2)
 LIVE_BLOCKS = 6
 WF_ATOL = 2e-3          # spectrum points (tests/test_planar_spectrum.py)
 RESUME_ATOL = 1e-6      # checkpoint resume (tests/test_checkpoint.py:50)
@@ -306,18 +326,34 @@ def tone_snr(audio: np.ndarray, f0: float, fs: float) -> float:
 
 
 def run_blocks(rx, blocks, controls):
+    """Outputs of each block and the state each block started from."""
     from cubicsdr_tpu_torch.ops.planar import PC
-    st, outs = rx.init_state(), []
+    st, outs, befores = rx.init_state(), [], []
     for blk in blocks:
+        befores.append(st)
         st, out = rx.apply(st, (PC(blk[0], blk[1]), controls))
         outs.append(out)
-    return outs
+    return outs, befores
+
+
+def reset_launches() -> None:
+    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
+    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
+    torch.cuda.synchronize()
+    pfbch2_planar.launches = 0
+    routed_shifted_resample.launches = 0
+
+
+def read_launches() -> dict:
+    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
+    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
+    torch.cuda.synchronize()
+    return {"pfbch2_planar": pfbch2_planar.launches,
+            "routed_shifted_resample": routed_shifted_resample.launches}
 
 
 def check_main_path(dev, n_demods: int = 16, block: int = BLOCK):
     """Phase 4. Returns the launch counts of the main path's run."""
-    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
-    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
     from cubicsdr_tpu_torch.utils.synth import demod_freqs, synth_fm
     freqs = demod_freqs(n_demods, spread=15)
     iq = synth_fm(freqs[:15], 3 * block, FS, dev, seed=1)
@@ -332,42 +368,17 @@ def check_main_path(dev, n_demods: int = 16, block: int = BLOCK):
                              "fused kernel path")
     controls = rx.control_template()
     controls[0]["frequency"] = freqs
-    torch.cuda.synchronize()
-    pfbch2_planar.launches = 0
-    routed_shifted_resample.launches = 0
-    outs = run_blocks(rx, blocks, controls)
-    torch.cuda.synchronize()
-    launches = {"pfbch2_planar": pfbch2_planar.launches,
-                "routed_shifted_resample": routed_shifted_resample.launches}
+    reset_launches()
+    outs, _ = run_blocks(rx, blocks, controls)
+    launches = read_launches()
     if min(launches.values()) < 1:
         raise AssertionError(f"main path skipped a kernel: {launches}")
 
     rx_cpu = build_pipeline(n_demods, "cpu", True, block)
-    outs_cpu = run_blocks(rx_cpu, [b.cpu() for b in blocks], controls)
-    worst = {"iq_err": 0.0, "mix_rms": 0.0, "mix_q995": 0.0,
-             "level_err": 0.0}
-    for o, r in zip(outs, outs_cpu):
-        g, gr = o["groups"][0], r["groups"][0]
-        for p, q in ((g["iq"].re, gr["iq"].re), (g["iq"].im, gr["iq"].im)):
-            p = p.cpu().numpy()
-            q = q.numpy()
-            np.testing.assert_allclose(p, q, atol=3e-4, rtol=1e-3)
-            worst["iq_err"] = max(worst["iq_err"], float(np.abs(p - q).max()))
-        for a, b in ((o["mix"], r["mix"]), (g["audio"], gr["audio"])):
-            d = np.abs(a.cpu().numpy() - b.numpy())
-            rms, q995 = float(np.sqrt(np.mean(d * d))), float(
-                np.quantile(d, 0.995))
-            if not (rms < 2e-3 and q995 < 5e-3):
-                raise AssertionError(f"audio vs CPU: rms {rms}, q995 {q995}")
-            worst["mix_rms"] = max(worst["mix_rms"], rms)
-            worst["mix_q995"] = max(worst["mix_q995"], q995)
-        lv = float(np.abs(g["level"].cpu().numpy()
-                          - gr["level"].numpy()).max())
-        if not lv <= 0.05:
-            raise AssertionError(f"level vs CPU differs by {lv}")
-        worst["level_err"] = max(worst["level_err"], lv)
-        if not torch.isfinite(o["mix"]).all():
-            raise AssertionError("non-finite mix")
+    outs_cpu, befores = run_blocks(rx_cpu, [b.cpu() for b in blocks],
+                                   controls)
+    worst = {}
+    compare_groups(rx_cpu, outs, outs_cpu, befores, worst)
     # Tone recovery: every station's audio over blocks 2-3 (block 1 holds
     # the filters' start-up transient).
     snrs = []
@@ -381,33 +392,38 @@ def check_main_path(dev, n_demods: int = 16, block: int = BLOCK):
     return launches, worst
 
 
+def timed_steps(rx, blocks, controls, n_blocks: int, n_warm: int = 3):
+    """Msamples/s and ms per block of ``rx``'s step on device-resident IQ
+    (``blocks``, cycled) and controls, over ``n_blocks`` blocks after
+    ``n_warm`` warm-up blocks."""
+    from cubicsdr_tpu_torch.ops.planar import PC
+    controls = [{k: torch.as_tensor(v, device=rx.device)
+                 for k, v in c.items()} for c in controls]
+    blocks = [PC(b[0].contiguous(), b[1].contiguous()) for b in blocks]
+    st = rx.init_state()
+    for b in range(n_warm):
+        st, out = rx.apply(st, (blocks[b % len(blocks)], controls))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(n_blocks):
+        st, out = rx.apply(st, (blocks[b % len(blocks)], controls))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not torch.isfinite(out["mix"]).all():
+        raise AssertionError("non-finite mix in a throughput run")
+    return n_blocks * rx.block_len / dt / 1e6, dt / n_blocks * 1e3
+
+
 def throughput(dev, n_demods: int, use_kernels: bool, n_blocks: int = 20,
                block: int = BLOCK):
-    """Msamples/s of the main path on device-resident IQ and controls,
-    over ``n_blocks`` blocks after 3 warm-up blocks."""
-    from cubicsdr_tpu_torch.ops.planar import PC
+    """Msamples/s and ms per block of the main path (demod``n_demods``)."""
     from cubicsdr_tpu_torch.utils.synth import demod_freqs, synth_fm
     rx = build_pipeline(n_demods, dev, use_kernels, block)
     controls = rx.control_template()
     controls[0]["frequency"] = demod_freqs(n_demods)
-    controls = [{k: torch.as_tensor(v, device=dev) for k, v in c.items()}
-                for c in controls]
     iq = synth_fm(demod_freqs(16), 2 * block, FS, dev, seed=2)
-    blocks = [PC(iq[0, b * block:(b + 1) * block].contiguous(),
-                 iq[1, b * block:(b + 1) * block].contiguous())
-              for b in range(2)]
-    st = rx.init_state()
-    for b in range(3):
-        st, out = rx.apply(st, (blocks[b % 2], controls))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in range(n_blocks):
-        st, out = rx.apply(st, (blocks[b % 2], controls))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if not torch.isfinite(out["mix"]).all():
-        raise AssertionError("non-finite mix in the throughput run")
-    return n_blocks * block / dt / 1e6, dt / n_blocks * 1e3
+    blocks = [iq[:, b * block:(b + 1) * block] for b in range(2)]
+    return timed_steps(rx, blocks, controls, n_blocks)
 
 
 def audio_close(a, b, what: str) -> dict:
@@ -483,10 +499,8 @@ def drive_live(lr) -> int:
 
 
 def check_live(dev):
-    """Phases 6 and 7. Returns (launches in the live run, summary)."""
+    """Phases 9 and 10. Returns (launches in the live run, summary)."""
     from cubicsdr_tpu_torch.app.checkpoint import load_state, save_state
-    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
-    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
     freqs, blocks = live_blocks()
     rx = build_pipeline(16, dev, True)
     rx_cpu = build_pipeline(16, "cpu", True)
@@ -498,17 +512,11 @@ def check_live(dev):
             d.mkdir()
             lr, mixes, lines = run_live(pipe, freqs, blocks, d, views=True)
             if name == "cuda":
-                torch.cuda.synchronize()
-                pfbch2_planar.launches = 0
-                routed_shifted_resample.launches = 0
+                reset_launches()
             t0 = time.perf_counter()
             n = drive_live(lr)
             if name == "cuda":
-                torch.cuda.synchronize()
-                launches = {
-                    "pfbch2_planar": pfbch2_planar.launches,
-                    "routed_shifted_resample":
-                        routed_shifted_resample.launches}
+                launches = read_launches()
             lr.stop()
             summary[f"{name}_s"] = time.perf_counter() - t0
             if n != LIVE_BLOCKS:
@@ -564,7 +572,7 @@ def check_live(dev):
                        waterfall_lines=g["lines"],
                        ring_dropped_samples=drops[0])
 
-        # Phase 7: checkpoint after 3 blocks, resume in a fresh receiver.
+        # Phase 10: checkpoint after 3 blocks, resume in a fresh receiver.
         lr_a, _, _ = run_live(rx, freqs, blocks[:3], None, views=False)
         if drive_live(lr_a) != 3:
             raise AssertionError("checkpoint run: first half short")
@@ -602,6 +610,184 @@ def live_throughput(rx, ingest_dtype, n_warm: int = 8, n_timed: int = 40):
     return {"msamples_per_s": n * rx.block_len / dt / 1e6,
             "ms_per_block": dt / n * 1e3, "blocks": n,
             "ring_dropped_samples": int(snap["ingest"]["dropped"])}
+
+
+SYMBOL_MARGIN = 1e-5    # slicer score gap below which a symbol may flip
+
+
+def compare_groups(rx_cpu, outs, outs_cpu, befores_cpu, worst) -> None:
+    """Every group of every block on the card against the CPU at the
+    pipeline's gates: iq tap atol 3e-4 / rtol 1e-3, mix and audio rms
+    < 2e-3 and 99.5% quantile < 5e-3, level 0.05; digital symbols equal
+    wherever the CPU slicer's margin between its two best scores is at
+    least SYMBOL_MARGIN. Folds the worst values into ``worst``."""
+    def fold(k, v):
+        worst[k] = max(worst.get(k, 0.0), v)
+
+    for o, r, st in zip(outs, outs_cpu, befores_cpu):
+        if not torch.isfinite(o["mix"]).all():
+            raise AssertionError("non-finite mix")
+        if o["mix"].numel():                 # a plan with audio
+            e = audio_close(o["mix"].cpu().numpy(), r["mix"].numpy(), "mix")
+            fold("audio_rms", e["rms"])
+            fold("audio_q995", e["q995"])
+        for gi, (g, gr) in enumerate(zip(o["groups"], r["groups"])):
+            if set(g) != set(gr):
+                raise AssertionError(f"group {gi} outputs {sorted(g)} vs "
+                                     f"CPU {sorted(gr)}")
+            for p, q in ((g["iq"].re, gr["iq"].re),
+                         (g["iq"].im, gr["iq"].im)):
+                p, q = p.cpu().numpy(), q.numpy()
+                np.testing.assert_allclose(p, q, atol=3e-4, rtol=1e-3)
+                fold("iq_err", float(np.abs(p - q).max()))
+            lv = float(np.abs(g["level"].cpu().numpy()
+                              - gr["level"].numpy()).max())
+            if not lv <= 0.05:
+                raise AssertionError(f"group {gi} level vs CPU: {lv}")
+            fold("level_err", lv)
+            if rx_cpu.is_digital[gi]:
+                margin = rx_cpu.kits[gi].decision_margin(
+                    st["groups"][gi][1], gr["iq"]).numpy()
+                flip = g["symbols"].cpu().numpy() != gr["symbols"].numpy()
+                bad = int((flip & (margin >= SYMBOL_MARGIN)).sum())
+                if bad or g["symbols"].dtype != torch.int32:
+                    raise AssertionError(f"group {gi}: {bad} symbols differ "
+                                         f"from the CPU above the margin")
+                worst["symbols"] = worst.get("symbols", 0) + flip.size
+                worst["symbol_flips_under_margin"] = worst.get(
+                    "symbol_flips_under_margin", 0) + int(flip.sum())
+            else:
+                e = audio_close(g["audio"].cpu().numpy(),
+                                gr["audio"].numpy(), f"group {gi} audio")
+                fold("audio_rms", e["rms"])
+                fold("audio_q995", e["q995"])
+                if not torch.isfinite(g["audio"]).all():
+                    raise AssertionError(f"group {gi}: non-finite audio")
+
+
+def plan_blocks(plan, n_blocks: int, block_len: int, seed: int):
+    """The plan's synthetic capture on the card, cut into blocks."""
+    iq = plan.capture(n_blocks * block_len, "cuda", seed=seed)
+    return [iq[:, b * block_len:(b + 1) * block_len].contiguous()
+            for b in range(n_blocks)]
+
+
+def check_plan(plan, n_blocks: int, seed: int):
+    """A plan built with the pipeline's defaults (the card, both
+    kernels) over ``n_blocks`` blocks of its capture, against the same
+    plan on the CPU. Returns (launches, worst, card outputs, CPU outputs,
+    CPU states before each block, blocks, pipelines)."""
+    rx = plan.pipeline()
+    if rx.device.type != "cuda":
+        raise AssertionError(f"{plan.name}: the default is not the card")
+    rx_cpu = plan.pipeline(device="cpu")
+    blocks = plan_blocks(plan, n_blocks, rx.block_len, seed)
+    reset_launches()
+    outs, _ = run_blocks(rx, blocks, plan.controls(rx))
+    launches = read_launches()
+    outs_cpu, befores = run_blocks(rx_cpu, [b.cpu() for b in blocks],
+                                   plan.controls(rx_cpu))
+    worst = {}
+    compare_groups(rx_cpu, outs, outs_cpu, befores, worst)
+    return launches, worst, outs, outs_cpu, befores, blocks, (rx, rx_cpu)
+
+
+def check_scan58():
+    """scan58 on the card: 3 blocks against the CPU, both kernels'
+    launches (1 PFB and 6 route per block), and a tone through one FM,
+    one NBFM and one AM row (blocks 2-3)."""
+    from cubicsdr_tpu_torch.utils.synth import scan58
+    plan = scan58()
+    launches, worst, outs, outs_cpu, befores, blocks, (rx, rx_cpu) = \
+        check_plan(plan, 3, seed=11)
+    if rx.fused_route != [True] * 6:
+        raise AssertionError(f"scan58 fused {rx.fused_route}")
+    if launches != {"pfbch2_planar": 3, "routed_shifted_resample": 18}:
+        raise AssertionError(f"scan58 launches {launches}, expected 3 PFB "
+                             f"and 18 route")
+    for gi, (name, tone) in enumerate((("FM", 700.0), ("NBFM", 1000.0),
+                                       ("AM", 400.0))):
+        a = np.concatenate([o["groups"][gi]["audio"][0, 0].cpu().numpy()
+                            for o in outs[1:]])
+        snr = tone_snr(a, tone, rx.audio_rate)
+        if not snr > 40:
+            raise AssertionError(f"scan58 {name} row 0 tone SNR {snr:.1f}")
+        worst[f"{name}_tone_snr_db"] = snr
+    return launches, worst, (plan, blocks, outs_cpu, befores, rx, rx_cpu)
+
+
+def check_coverage():
+    """Every modem scan58 does not run, on the card against the CPU in
+    the coverage plans (2 blocks each); returns the modems covered, the
+    launches summed over the plans, and the worst values."""
+    from cubicsdr_tpu_torch.utils.synth import coverage_plans
+    covered, total, worst, rows = [], None, {}, []
+    for i, plan in enumerate(coverage_plans()):
+        launches, w, *_, (rx, _) = check_plan(plan, 2, seed=20 + i)
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+        for k, v in w.items():
+            worst[k] = worst.get(k, 0) + v if k.startswith("symbol") \
+                else max(worst.get(k, 0.0), v)
+        covered += [g.modem_name for g in plan.specs]
+        rows.append({"plan": plan.name, "block_len": rx.block_len,
+                     "fused": rx.fused_route, "launches": launches})
+    return covered, total, worst, rows
+
+
+def check_live_scan58(ctx):
+    """The live loop on scan58's 3 blocks, on the card and on the CPU:
+    digital symbols reach on_block as int32, equal to the CPU loop's
+    above the slicer margin; the CPU loop equals the CPU pipeline run;
+    mixes within the pipeline gates; both kernels' launches."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    plan, blocks, outs_cpu, befores, rx, rx_cpu = ctx
+    host = [b.cpu().numpy() for b in blocks]
+    got = {}
+    for name, pipe in (("cuda", rx), ("cpu", rx_cpu)):
+        seen = []
+        lr = LiveReceiver(pipe, plan.controls(pipe), iter(host),
+                          waterfall_fft=1024, waterfall_lines=64,
+                          on_block=seen.append)
+        if name == "cuda":
+            reset_launches()
+        lr.start_producer()
+        n = lr.run_blocks()
+        if name == "cuda":
+            launches = read_launches()
+        lr.stop()
+        if n != len(host):
+            raise AssertionError(f"{name} live scan58 ran {n} blocks")
+        got[name] = seen
+    if launches != {"pfbch2_planar": 3, "routed_shifted_resample": 18}:
+        raise AssertionError(f"live scan58 launches {launches}")
+    worst, n_syms = {"rms": 0.0, "q995": 0.0}, 0
+    dig = [gi for gi, d in enumerate(rx_cpu.is_digital) if d]
+    for b, (g, c) in enumerate(zip(got["cuda"], got["cpu"])):
+        e = audio_close(g["mix"], c["mix"], f"live mix block {b}")
+        worst = {k: max(worst[k], e[k]) for k in worst}
+        for gi in dig:
+            sg, sc = g["groups"][gi]["symbols"], c["groups"][gi]["symbols"]
+            if sg.dtype != np.int32 or sc.dtype != np.int32:
+                raise AssertionError("live symbols are not int32")
+            np.testing.assert_array_equal(
+                sc, outs_cpu[b]["groups"][gi]["symbols"].numpy())
+            margin = rx_cpu.kits[gi].decision_margin(
+                befores[b]["groups"][gi][1],
+                outs_cpu[b]["groups"][gi]["iq"]).numpy()
+            if ((sg != sc) & (margin >= SYMBOL_MARGIN)).any():
+                raise AssertionError(f"live symbols of group {gi} differ")
+            n_syms += sg.size
+    return launches, {"audio": worst, "symbols_delivered": n_syms}
+
+
+def plan_throughput(plan, n_blocks: int = 10):
+    """A plan's row: Msamples/s and ms per block of its step."""
+    rx = plan.pipeline()
+    msps, ms = timed_steps(rx, plan_blocks(plan, 2, rx.block_len, 3),
+                           plan.controls(rx), n_blocks)
+    return {"row": plan.name, "msamples_per_s": msps, "ms_per_block": ms,
+            "block_len": rx.block_len, "blocks": n_blocks}
 
 
 def main() -> int:
@@ -646,10 +832,14 @@ def main() -> int:
              f"{c['bound_ms']:.4f} ms ({c['bound_by']}), share "
              f"{c['roofline_share']:.3f}, {c['achieved_gb_per_s']:.0f} GB/s"
              f" [{smi}]")
+    # The demod16 shapes, then scan58's new ones over its 256,000-sample
+    # channels: AM's 3/50 at O=384 (runtime tap loop, 5 residue groups)
+    # and CW/BPSK's 1/50 with 1,249 taps at N=4 and N=16.
     for P, Q, N, chan_len in ((1, 5, 16, BLOCK // 8), (1, 5, 256, BLOCK // 8),
                               (2, 5, 16, BLOCK // 8), (1, 4, 16, BLOCK // 8),
                               (3, 5, 16, BLOCK // 8), (1, 40, 16, BLOCK // 8),
-                              (1, 128, 16, 131072)):
+                              (1, 128, 16, 131072), (3, 50, 16, SCAN_CHAN),
+                              (1, 50, 4, SCAN_CHAN), (1, 50, 16, SCAN_CHAN)):
         c = check_route(dev, P, Q, N, chan_len, rng)
         route_cases.append(c)
         line(f"route {P}/{Q} N={N} O={c['O']} chan_len={chan_len} "
@@ -671,6 +861,24 @@ def main() -> int:
                              "msamples_per_s": msps, "ms_per_block": ms,
                              "block_len": BLOCK, "card": smi}))
 
+    scan_launches, scan, scan_ctx = check_scan58()
+    line(f"scan58 x3 blocks (58 demods, 6 groups): launches "
+         f"{scan_launches}, vs CPU {json.dumps(scan)} [{smi}]")
+    covered, cov_launches, cov, cov_rows = check_coverage()
+    ran = set(covered) | {g.modem_name for g in scan_ctx[0].specs}
+    from cubicsdr_tpu_torch.modems import modem_names
+    if ran != set(modem_names()):
+        raise AssertionError(f"modems not run on the card: "
+                             f"{set(modem_names()) - ran}")
+    line(f"coverage plans {json.dumps(cov_rows)}: {len(ran)} of "
+         f"{len(modem_names())} modems run on the card, vs CPU "
+         f"{json.dumps(cov)} [{smi}]")
+    live_scan_launches, live_scan = check_live_scan58(scan_ctx)
+    line(f"live loop scan58 x3 blocks: launches {live_scan_launches}, "
+         f"symbols to on_block, vs CPU {json.dumps(live_scan)} [{smi}]")
+    line(json.dumps({**plan_throughput(scan_ctx[0]), "card": smi}))
+    del scan_ctx
+
     live_launches, live = check_live(dev)
     line(f"live loop demod16 x{LIVE_BLOCKS} blocks: launches "
          f"{live_launches}, vs CPU {json.dumps(live)} [{smi}]")
@@ -685,6 +893,11 @@ def main() -> int:
         main = cases[0]           # the main path's shape (demod16)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {
+                    "demod16": launches[name], "scan58": scan_launches[name],
+                    "coverage": cov_launches[name],
+                    "live_scan58": live_scan_launches[name],
+                    "live16": live_launches[name]},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

@@ -7,9 +7,10 @@ found under the same name (``cubicsdr_tpu.ops.channelizer.ChannelizerPFB2``
 contract ``apply(state, x) -> (state, y)``; their constant taps, DFT and
 Toeplitz matrices are registered buffers, so ``.to(device)`` moves them.
 
-Ported so far: the flagship receive step (``receiver.pipeline.
-ReceiverPipeline`` with ``dtype=PLANAR``, ``chan_mode="pfbch2"`` and FM
-groups). Its two hot stages run hand-written CUDA kernels for Hopper
+Ported so far: the receive step (``receiver.pipeline.ReceiverPipeline``
+with ``dtype=PLANAR`` and ``chan_mode="pfbch2"``) with the whole modem
+bank, analog and digital, and the live loop (``app.runner``). Its two hot
+stages run hand-written CUDA kernels for Hopper
 (``csrc/pfb.cu``, ``csrc/route.cu``) when ``use_kernels=True`` and the data
 lies on a CUDA device; on CPU tensors the same wrappers run their plain
 PyTorch versions.

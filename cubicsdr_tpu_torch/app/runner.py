@@ -693,7 +693,7 @@ class LiveReceiver:
             for ri in range(rows):
                 if keys[off + ri] == solo:
                     if "audio" not in h or ri not in h["audio_rows"]:
-                        return None          # not packed
+                        return None          # digital / not packed
                     a = h["audio"][h["audio_rows"].index(ri)]
                     return (np.concatenate([a, a]) if a.shape[0] == 1
                             else a)
@@ -747,8 +747,9 @@ class LiveReceiver:
         """The post-step: the visual chain (distributor re-block +
         spectrum EMA) fused with output packing — every host-needed output
         of a block (display points, line count, mix audio, per-demod
-        levels, squelch flags, selected per-demod audio, demod-view and
-        zoom points) leaves the device as ONE packed float32 vector, one
+        levels, squelch flags, digital symbols, selected per-demod audio,
+        demod-view and zoom points) leaves the device as ONE packed float32
+        vector (symbols are small integers, exact in float32), one
         device->host copy per block. Binds the visual-chain objects at
         creation, so a later swap never changes an installed post-step."""
         dist, spec = self.dist, self.spec
@@ -765,7 +766,7 @@ class LiveReceiver:
                 parts.append(mix.reshape(-1))
             for gp in g_parts:
                 parts.append(gp["level"].reshape(-1))
-                for k in ("squelched", "audio"):
+                for k in ("squelched", "symbols", "audio"):
                     if gp[k] is not None:
                         parts.append(gp[k].to(f32).reshape(-1))
             if dv_tap is not None:
@@ -840,7 +841,8 @@ class LiveReceiver:
     def _pack_parts(self, out):
         """(mix, g_parts) for the packed post-step. Per-demod audio is
         packed for ONLY the rows the host needs (active recorders,
-        subset-sink members, the solo target)."""
+        subset-sink members, the solo target); a digital group packs its
+        symbols instead, and never audio or squelch flags."""
         rec = self.any_recording()
         sink_keys = set()
         for s in self.audio_sinks.values():
@@ -852,8 +854,9 @@ class LiveReceiver:
         off = 0
         for g in out["groups"]:
             n = g["level"].shape[0]
+            has_audio = "audio" in g
             rows = []
-            if rec or sink_keys:
+            if has_audio and (rec or sink_keys):
                 for ri in range(n):
                     key = self.row_key(off + ri)
                     if ((rec and self.recording_enabled(key))
@@ -861,7 +864,8 @@ class LiveReceiver:
                         rows.append(ri)
             g_parts.append({
                 "level": g["level"],
-                "squelched": g["squelched"] if rec else None,
+                "squelched": g["squelched"] if rec and has_audio else None,
+                "symbols": g.get("symbols"),
                 "audio": (g["audio"].index_select(
                     0, self._rows_index(tuple(rows))) if rows else None),
                 "audio_rows": tuple(rows),
@@ -957,6 +961,8 @@ class LiveReceiver:
             h = {"level": take(gp["level"].shape)}
             if gp["squelched"] is not None:
                 h["squelched"] = take(gp["squelched"].shape) > 0.5
+            if gp["symbols"] is not None:
+                h["symbols"] = take(gp["symbols"].shape).astype(np.int32)
             if gp["audio"] is not None:
                 # Only the host-needed rows were packed; audio_rows maps
                 # packed position -> group row index.
@@ -970,17 +976,20 @@ class LiveReceiver:
 
         if nv:
             self.waterfall.add_lines(np.tile(pts, (nv, 1)))
+        # Read once: the finish runs outside the step lock, so a zoom-off
+        # may set self.zoom to None between a check and a use.
+        zoom = self.zoom
         if zoom_h is not None:
             z, n_pts = zoom_h
             zpts = take((n_pts,))
             if int(take((1,))[0]):
                 z.points = zpts.copy()
-        elif self.zoom is not None and planes is not None:
+        elif zoom is not None and planes is not None:
             # Chunk-misaligned view: fed from the host planes.
             p = np.stack(planes)
             if p.dtype != np.float32:
                 p = p.astype(np.float32) * self.ingest_scale
-            self.zoom.feed(p)
+            zoom.feed(p)
         if mix is not None:
             with self.audio_cond:
                 self.audio_tap.append(mix)
@@ -1005,7 +1014,9 @@ class LiveReceiver:
                         self.metrics.note(f"audio_out_error_{name}",
                                           str(e))
         # Recording sinks per row, gated on the DISPATCH-time packing
-        # (squelched present), not the current recording state.
+        # (squelched present), not the current recording state. Digital
+        # groups emit symbols, not audio: they are skipped but still
+        # advance the flat index, and no recorder is opened for them.
         gi_off = 0
         for h in hgroups:
             rows = h["level"].shape[0]

@@ -73,6 +73,13 @@ def xtail(z, n: int):
     return z[..., L - n:]
 
 
+def xslice(z, sl: slice):
+    """``z[..., sl]`` for a tensor or a PC."""
+    if isinstance(z, PC):
+        return z.slice_last(sl)
+    return z[..., sl]
+
+
 def planes_of(x):
     """(re, im) float32 planes of a PC."""
     return x.re, x.im

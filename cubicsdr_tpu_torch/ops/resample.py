@@ -19,6 +19,7 @@ from torch import nn
 from cubicsdr_tpu_torch.ops import design
 from cubicsdr_tpu_torch.ops.planar import PC, PLANAR, dtype_zeros, xcat, xtail
 from cubicsdr_tpu_torch.stream.op import StreamOp
+from cubicsdr_tpu_torch.utils.convolve import conv_real
 
 MAX_DENOMINATOR = 1_000_000
 TWO_PI = 6.283185307179586
@@ -240,17 +241,15 @@ def _windows(plane, start: int, n_rows: int, S: int, W: int):
 
 
 def planar_rational_resample(x, rs: RationalResampler):
-    """Conv-form fallback: rs's polyphase kernel as a strided correlation
-    over [..., L] data (planar PC or real) prefixed with rs.hist_len
-    history, for output lengths no Toeplitz tile divides."""
+    """Conv-form fallback: rs's polyphase kernel [P, KK] as a bank of P
+    stride-Q true convolutions over [..., L] data (planar PC or real)
+    prefixed with rs.hist_len history, for output lengths no Toeplitz tile
+    divides. Output phase r of block b lands at b*P + r."""
     start = rs.hist_len + rs.Q - 1 - (rs.KK - 1)
 
     def one_plane(z):
-        zs = z[..., start:]
-        n_b = (zs.shape[-1] - rs.KK) // rs.Q + 1
-        fr = zs.unfold(-1, rs.KK, rs.Q)[..., :n_b, :]      # [..., T, KK]
-        y = fr @ rs.ker.flip(-1).T                        # [..., T, P]
-        return y.reshape(*y.shape[:-2], -1)
+        y = conv_real(z[..., start:], rs.ker, stride=rs.Q)   # [..., P, T]
+        return y.transpose(-1, -2).reshape(*y.shape[:-2], -1)
 
     if isinstance(x, PC):
         return PC(one_plane(x.re), one_plane(x.im))

@@ -25,6 +25,7 @@ from cubicsdr_tpu_torch.ops.resample import (
     RationalResampler, ResamplerChain, design_ratio, make_resampler,
     planar_rational_resample, planar_shifted_resample_matmul)
 from cubicsdr_tpu_torch.stream.op import StreamOp
+from cubicsdr_tpu_torch.utils.tree import tree_map
 
 TWO_PI = 6.283185307179586
 
@@ -65,6 +66,11 @@ class ChannelFrontend(StreamOp):
                     self._stage1.init_state(),      # RAW input tail
                     tuple(s.init_state() for s in self._rest))
         return (self.nco.init_state(), self.resampler.init_state())
+
+    def state_row_mask(self):
+        """Nest matching ``init_state()``: True where a leaf's leading dim
+        is the per-demod row axis (every leaf of the batched frontend)."""
+        return tree_map(lambda _: True, self.init_state())
 
     def _folded_core(self, z: PC, omega, phase0):
         """Folded mix+resample on a hist-prefixed RAW stream ``z``; phase0
@@ -154,6 +160,12 @@ class RoutedChannelFrontend(ChannelFrontend):
                 dtype_zeros((self.M, self._stage1.hist_len), PLANAR,
                             self.device),
                 tuple(s.init_state() for s in self._rest))
+
+    def state_row_mask(self):
+        """The raw tail is per CHANNEL ([M, hist]), not a per-demod row
+        leaf, even when a group has exactly M demods."""
+        mask = tree_map(lambda _: True, self.init_state())
+        return (mask[0], tree_map(lambda _: False, mask[1]), mask[2])
 
     def apply(self, state, inputs):
         chans, chan_idx, omega = inputs

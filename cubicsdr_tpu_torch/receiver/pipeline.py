@@ -5,11 +5,16 @@ SDRPostThread -> PreThread -> DemodulatorThread -> AudioThread chain):
     iq[L] -> PFBCH2 channelizer -> DC blocker on channel 0
           -> route each demod to its nearest channel
           -> NCO + resample (fused CUDA kernel with use_kernels)
-          -> FM kits -> squelch/level -> stereo upmix -> gain/mute/solo mix
+          -> modem kits -> squelch/level -> stereo upmix -> gain/mute/solo mix
 
 Retunes, squelch levels, gains and mutes are per-block control tensors.
 The port carries planar IQ (``dtype=PLANAR``) through the 'pfbch2'
-channelizer; its modem bank is FM/NBFM so far.
+channelizer, with every modem of the registry. Digital groups
+(modem_type == "digital") ride the same chain: their kits emit symbol
+streams instead of audio (ref: ModemDigital.cpp:56-83), the signal meter
+runs on their channel IQ, and they add nothing to the audio mix (the
+reference's digital modems never push to the audio queue,
+src/demod/DemodulatorThread.cpp:237-247).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from cubicsdr_tpu_torch.receiver.frontend import (
 from cubicsdr_tpu_torch.receiver.mixer import mix_audio
 from cubicsdr_tpu_torch.receiver.squelch import SquelchGate
 from cubicsdr_tpu_torch.stream.op import StreamOp
+from cubicsdr_tpu_torch.utils.tree import tree_map
 
 
 @dataclass(frozen=True)
@@ -83,18 +89,23 @@ class ReceiverPipeline(StreamOp):
         self.chan_rate = self.sample_rate / self.M * 2
 
         self._modems = []
+        self.is_digital = []
         frontends, kits, gates = [], [], []
         for g in self.groups:
             modem = make_modem(g.modem_name, **g.settings_dict)
             bw = modem.check_sample_rate(g.bandwidth, audio_rate)
+            digital = modem.modem_type == "digital"
             frontends.append(ChannelFrontend(self.chan_rate, bw, g.count,
                                              dtype=dtype))
             kits.append(modem.build_kit(bw, audio_rate,
                                         batch_shape=(g.count,), dtype=dtype))
-            gates.append(SquelchGate(
+            # A symbol modem's meter runs on the bandwidth-rate IQ, and it
+            # has no audio to gate.
+            gates.append(SquelchGate(bw, g.count) if digital else SquelchGate(
                 audio_rate, g.count,
                 use_signal_out=[modem.uses_signal_output()] * g.count))
             self._modems.append(modem)
+            self.is_digital.append(digital)
         self.kits = nn.ModuleList(kits)
         self.gates = nn.ModuleList(gates)
 
@@ -154,7 +165,9 @@ class ReceiverPipeline(StreamOp):
                 raise ValueError(
                     f"block_len {self.block_len} -> channel len {lc} not "
                     f"divisible by frontend Q={fe.Q}; use choose_block_len()")
-            outs.add(self._kit_out_len(gi, fe.out_len(lc)))
+            if not self.is_digital[gi]:
+                outs.add(self._kit_out_len(gi, fe.out_len(lc)))
+        # Audio lengths must agree across analog groups for mixing.
         if len(outs) > 1:
             raise ValueError(f"groups produce different audio lengths "
                              f"{outs}: bandwidth/audio ratios must be exact "
@@ -162,6 +175,10 @@ class ReceiverPipeline(StreamOp):
         self.audio_len = outs.pop() if outs else 0
 
     def _kit_out_len(self, gi, in_len):
+        # Analog kits resample bandwidth -> audio rate by exact rationals;
+        # I/Q passes its input through.
+        if self._modems[gi].name == "I/Q":
+            return in_len
         fe = self.frontends[gi]
         P, Q = design_ratio(self.audio_rate / fe.bandwidth,
                             max_denominator=500)
@@ -177,6 +194,17 @@ class ReceiverPipeline(StreamOp):
                 for fe, kit, gate in
                 zip(self.frontends, self.kits, self.gates)),
         }
+
+    def group_state_row_mask(self, gi: int):
+        """Bool nest matching ``init_state()["groups"][gi]``: True on
+        leaves whose leading dim is the per-demod ROW axis (portable
+        row-wise across plan rebuilds), False on shared per-channel leaves
+        (the fused frontend's [M, hist] channel tail). Kit and gate state
+        is per-demod throughout."""
+        fe, kit, gate = self.frontends[gi], self.kits[gi], self.gates[gi]
+        return (fe.state_row_mask(),
+                tree_map(lambda _: True, kit.init_state()),
+                tree_map(lambda _: True, gate.init_state()))
 
     # --- control vector layout: per-demod parameters, grouped ---
     def control_template(self):
@@ -196,8 +224,10 @@ class ReceiverPipeline(StreamOp):
 
     def apply(self, state, inputs):
         """inputs = (iq PC [L], controls list-of-dicts). Returns (state,
-        outputs): mix [2, La], mix_peak, per-group dicts (audio, level,
-        floor, ceil, peak, squelched, iq) and the iq passthrough."""
+        outputs): mix [2, La], mix_peak, per-group dicts (analog: audio,
+        level, floor, ceil, peak, squelched, iq; digital: symbols, evm,
+        locked, level, floor, ceil, squelched, iq) and the iq
+        passthrough."""
         iq, controls = inputs
         dev = self.device
         st_chan, chans = self.channelizer.apply(state["chan"], iq)
@@ -228,18 +258,26 @@ class ReceiverPipeline(StreamOp):
                 x = PC(chans.re[chan_idx], chans.im[chan_idx])  # [N, Lc]
                 s_fe, y = fe.apply(s_fe, (x, omega))
             s_kit, ko = kit.apply(s_kit, y)
-            s_gate, gout = gate.apply(
-                s_gate, (ko, y, ctl["squelch_level"],
-                         ctl["squelch_enabled"]))
-            a = gout["audio"]
-            if a.shape[-2] == 1:                        # mono -> stereo
-                a = torch.cat([a, a], dim=-2)
-            audio_all.append(a)
-            peaks_all.append(gout["peak"])
-            gains_all.append(torch.as_tensor(ctl["gain"],
-                                             dtype=torch.float32, device=dev))
-            active_all.append(torch.as_tensor(ctl["active"], device=dev)
-                              .to(torch.float32))
+            if self.is_digital[gi]:
+                # Symbol modem: no audio; the meter reads the channel IQ
+                # (ref: DemodulatorThread.cpp:142-196).
+                s_gate, gout = gate.apply(
+                    s_gate, (None, y, ctl["squelch_level"],
+                             ctl["squelch_enabled"]))
+                gout.update(ko)              # symbols / evm / locked
+            else:
+                s_gate, gout = gate.apply(
+                    s_gate, (ko, y, ctl["squelch_level"],
+                             ctl["squelch_enabled"]))
+                a = gout["audio"]
+                if a.shape[-2] == 1:                    # mono -> stereo
+                    a = torch.cat([a, a], dim=-2)
+                audio_all.append(a)
+                peaks_all.append(gout["peak"])
+                gains_all.append(torch.as_tensor(
+                    ctl["gain"], dtype=torch.float32, device=dev))
+                active_all.append(torch.as_tensor(ctl["active"], device=dev)
+                                  .to(torch.float32))
             # Per-demod IQ tap for the demod spectrum/scope views
             # (ref: SDRPostThread.cpp:233-245).
             gout["iq"] = y

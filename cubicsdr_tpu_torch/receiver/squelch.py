@@ -26,11 +26,15 @@ def linear_to_db(x):
 
 
 class SquelchGate(StreamOp):
-    """apply(state, (audio [..., N, C, L], iq PC [..., N, L],
+    """apply(state, (audio [..., N, C, L] | None, iq PC [..., N, L],
     squelch_level [N], squelch_enabled [N])) ->
     (state, dict(audio, squelched, level, floor, ceil, peak)).
 
-    ``use_signal_out`` (bool per demod) selects audio-vs-IQ level source."""
+    ``use_signal_out`` (bool per demod) selects audio-vs-IQ level source.
+    Digital groups pass ``audio=None`` (symbol modems emit no audio; the
+    meter still runs on IQ, ref: DemodulatorThread.cpp:142-196): the level
+    comes from the IQ magnitude measured at ``sample_rate`` = the IQ rate,
+    and the output has no ``peak`` or ``audio``."""
 
     def __init__(self, sample_rate: float, n_demods: int,
                  use_signal_out=None):
@@ -53,14 +57,17 @@ class SquelchGate(StreamOp):
 
     def apply(self, state, inputs):
         audio, iq, squelch_level, squelch_enabled = inputs
-        dev = audio.device
+        dev = iq.re.device
         # Reference sampleTime = len(iq)/iqRate; the audio block spans the
-        # same duration.
-        sample_time = audio.shape[-1] / self.sample_rate
+        # same duration, so measure it on whichever signal the gate's rate
+        # belongs to.
+        sample_time = (iq if audio is None else audio).shape[-1] \
+            / self.sample_rate
         re, im = planes_of(iq)
-        lvl_iq = linear_to_db(torch.sqrt(re * re + im * im).mean(dim=-1))
-        lvl_audio = linear_to_db(audio.abs().mean(dim=(-2, -1)))
-        current = torch.where(self.use_signal_out, lvl_audio, lvl_iq)
+        current = linear_to_db(torch.sqrt(re * re + im * im).mean(dim=-1))
+        if audio is not None:
+            lvl_audio = linear_to_db(audio.abs().mean(dim=(-2, -1)))
+            current = torch.where(self.use_signal_out, lvl_audio, current)
 
         sf, sc = state["floor"], state["ceil"]
         sl = torch.as_tensor(squelch_level, dtype=torch.float32, device=dev)
@@ -86,8 +93,9 @@ class SquelchGate(StreamOp):
         new_state = {"level": lvl, "floor": sf, "ceil": sc,
                      "squelch_break": sq_break}
         out = {"squelched": squelched, "level": lvl, "floor": sf,
-               "ceil": sc,
-               "peak": audio.abs().amax(dim=(-2, -1)),
-               "audio": torch.where(squelched[..., None, None],
-                                    torch.zeros_like(audio), audio)}
+               "ceil": sc}
+        if audio is not None:
+            out["peak"] = audio.abs().amax(dim=(-2, -1))
+            out["audio"] = torch.where(squelched[..., None, None],
+                                       torch.zeros_like(audio), audio)
         return new_state, out

@@ -74,13 +74,41 @@ def _pairs(rx_jax, rx):
                 rs.KK, fe.tile)
             yield f"frontends[{gi}].toep", T, fe._stage1.toeplitz(fe.tile)[0]
     for gi, (k_j, k) in enumerate(zip(rx_jax.kits, rx.kits)):
-        for si, (a, b) in enumerate(zip(_stages(k_j.resampler),
-                                        _stages(k.resampler))):
-            yield f"kits[{gi}].stage[{si}].ker", a.ker, b.ker
+        for name, buf in k.named_buffers():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in _DERIVED:
+                continue
+            yield f"kits[{gi}].{name}", _jax_constant(k_j, name), buf
 
 
 def _stages(resampler):
     return list(getattr(resampler, "stages", [resampler]))
+
+
+# Kit buffers built from other constants (tile matrices, kernel tap
+# layouts) or holding none: checked through their sources.
+_DERIVED = ("_anchor", "route_taps")
+
+
+def _jax_constant(kit_j, name: str):
+    """The JAX kit's constant at the port buffer path ``name``: the same
+    attribute path (``stages.0`` indexes a list), with complex FIR taps
+    split into planes (``taps_re``/``taps_im``) and a first-order
+    section's float64 numerator cast as the port holds it (``b_taps``)."""
+    *path, leaf = name.split(".")
+    obj = kit_j
+    for part in path:
+        obj = obj[int(part)] if part.isdigit() else getattr(obj, part)
+    if leaf.startswith("toep_"):
+        rs = obj
+        return _toeplitz_np(tuple(np.asarray(rs.ker).reshape(-1).tolist()),
+                            rs.P, rs.Q, rs.KK, int(leaf[5:]))[0]
+    if leaf in ("taps_re", "taps_im"):
+        t = np.asarray(obj.taps)
+        return (t.real if leaf == "taps_re" else t.imag).astype(np.float32)
+    if leaf == "b_taps":
+        return np.asarray(obj.b).astype(np.float32)
+    return getattr(obj, leaf)
 
 
 def constants_from_jax(rx_jax, rx) -> list[str]:

@@ -3,13 +3,15 @@ CUDA device.
 
     python3 -m cubicsdr_tpu_torch.utils.profile_step [--demods 16 256]
                                                      [--blocks 10] [--live]
+                                                     [--plan scan58]
 
 Runs ReceiverPipeline(use_kernels=True) (8 MS/s, FM demods, 1,024,000-
 sample blocks, device-resident IQ and controls) under torch.profiler and
 prints one JSON line per demod count: the wall time per block, the summed
 device kernel time per block, the device idle share (1 - kernel time /
 wall time) and the kernels that take the most device time. The profiler
-slows the host, so its wall times read above unprofiled ones.
+slows the host, so its wall times read above unprofiled ones. ``--plan
+scan58`` profiles that mixed plan (``utils/synth.py``) instead.
 
 ``--live`` profiles the live loop instead (demod16, a back-pressured
 cycling source, 1024-point 64-line waterfall), one line per ring format:
@@ -42,9 +44,29 @@ def profile(n_demods: int, n_blocks: int, top: int = 12) -> dict:
                           use_kernels=True, block_len=BLOCK, device=dev)
     controls = rx.control_template()
     controls[0]["frequency"] = demod_freqs(n_demods)
+    iq = synth_fm(demod_freqs(16), BLOCK, FS, dev, seed=3)
+    return {"demods": n_demods,
+            **profile_pipeline(rx, iq, controls, n_blocks, top)}
+
+
+def profile_plan(name: str, n_blocks: int, top: int = 12) -> dict:
+    """A named plan of ``utils/synth.py`` (scan58), built with the
+    pipeline's defaults, on one block of its capture."""
+    from cubicsdr_tpu_torch.utils import synth
+    plan = getattr(synth, name)()
+    rx = plan.pipeline()
+    iq = plan.capture(rx.block_len, rx.device, seed=3)
+    return {"plan": name, "demods": sum(g.count for g in plan.specs),
+            "block_len": rx.block_len,
+            **profile_pipeline(rx, iq, plan.controls(rx), n_blocks, top)}
+
+
+def profile_pipeline(rx, iq, controls, n_blocks: int, top: int) -> dict:
+    """Profile ``rx`` stepping over the planes ``iq`` [2, block_len] with
+    device-resident controls, after 3 warm-up blocks."""
+    dev = rx.device
     controls = [{k: torch.as_tensor(v, device=dev) for k, v in c.items()}
                 for c in controls]
-    iq = synth_fm(demod_freqs(16), BLOCK, FS, dev, seed=3)
     blk = PC(iq[0].contiguous(), iq[1].contiguous())
     st = rx.init_state()
     for _ in range(3):
@@ -60,7 +82,7 @@ def profile(n_demods: int, n_blocks: int, top: int = 12) -> dict:
         wall = time.perf_counter() - t0
     wall_ms = wall / n_blocks * 1e3
     dev_ms, rows = _device_ms(prof, n_blocks, top)
-    return {"demods": n_demods, "wall_ms_per_block": wall_ms,
+    return {"wall_ms_per_block": wall_ms,
             "device_ms_per_block": dev_ms,
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
             "top": rows}
@@ -135,6 +157,8 @@ def main() -> int:
     ap.add_argument("--blocks", type=int, default=10)
     ap.add_argument("--live", action="store_true",
                     help="profile the live loop per ring format")
+    ap.add_argument("--plan", choices=["scan58"],
+                    help="profile a mixed plan of utils/synth.py")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -143,6 +167,9 @@ def main() -> int:
         import numpy as np
         for dt in (np.float32, np.int16, np.int8):
             print(json.dumps(profile_live(dt, args.blocks)), flush=True)
+        return 0
+    if args.plan:
+        print(json.dumps(profile_plan(args.plan, args.blocks)), flush=True)
         return 0
     for n in args.demods:
         print(json.dumps(profile(n, args.blocks)), flush=True)

@@ -281,13 +281,15 @@ class ZoomSpectrumView:
     One front (NCO, resampler, pacer, step) per (P, Q, chunk), cached, so
     a revisited zoom level reuses its built front; the view offset rides
     in as a device scalar. Host code buffers arbitrary block lengths into
-    fixed Q-divisible chunks. Planar only, on ``device``.
+    fixed Q-divisible chunks. Planar only, on ``device``: the card unless
+    the caller asks for the host (``device="cpu"``); without a CUDA device
+    the default raises, as ``ReceiverPipeline``'s does.
     """
 
     def __init__(self, input_rate: float, block_len: int,
                  fft_size: int = DEFAULT_FFT_SIZE,
                  lines_per_second: float = 30.0,
-                 fft_average_rate: float = 0.65, device=None):
+                 fft_average_rate: float = 0.65, device="cuda"):
         from cubicsdr_tpu_torch.visual.planar_spectrum import (
             PlanarSpectrumProcessor)
         self.input_rate = float(input_rate)
@@ -295,7 +297,11 @@ class ZoomSpectrumView:
         self.fft_size = int(fft_size)
         self.n = self.fft_size * SPECTRUM_VZM
         self.lps = float(lines_per_second)
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ZoomSpectrumView runs on the card by default and this host "
+                "has no CUDA device; pass device='cpu' to run on the host")
         self.core = PlanarSpectrumProcessor(
             fft_size, fft_average_rate).to(self.device)
         self.view_offset = 0.0

@@ -63,3 +63,26 @@ def test_channel_centers_and_count():
 
 def test_fast_atan2_coefficients():
     assert _atan_coeffs() == j_atan()
+
+
+@pytest.mark.parametrize("case", [
+    ("kaiser_filter_len", (0.004, 60.0)), ("kaiser_filter_len", (0.5, 30.0)),
+    ("lowpass_for_transition", (0.1, 0.02)),
+    ("lowpass_for_transition", (0.25, 0.05, 40.0, 2.0)),
+    ("deemphasis_coeffs", (75, 48000)), ("deemphasis_coeffs", (50, 44100)),
+    ("ssb_bandpass", (257, 5400, 5400, True)),
+    ("ssb_bandpass", (101, 5400, 5400, False))],
+    ids=lambda c: f"{c[0]}{c[1]}")
+def test_modem_designs_equal_jax(case):
+    """The designs the modem bank builds from (AM/FMS/SSB filter lengths,
+    lowpasses, de-emphasis and one-sided SSB bandpasses) equal the JAX
+    package's exactly."""
+    name, args = case
+    got, want = getattr(design, name)(*args), getattr(j_design, name)(*args)
+    if isinstance(want, tuple):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+            assert g.dtype == w.dtype
+    else:
+        np.testing.assert_array_equal(got, want)
+        assert np.asarray(got).dtype == np.asarray(want).dtype

@@ -154,13 +154,17 @@ def _kernel_order(rs, z, chan_idx, omega, phase_w0):
 
 @pytest.mark.parametrize("P,Q,Lc", [(1, 5, 5 * 128 * 8), (2, 5, 640 * 8),
                                     (1, 4, 4 * 128 * 10), (3, 5, 640 * 8),
-                                    (1, 40, 40 * 128 * 2)])
+                                    (1, 40, 40 * 128 * 2),
+                                    (3, 50, 50 * 128 * 2),
+                                    (1, 50, 50 * 128 * 2)])
 def test_kernel_layout_matches_plain(rng, P, Q, Lc):
     """The CUDA kernel's polyphase tap layout, evaluated in its summation
     order, equals the plain version (route 1/5 on the main path, 2/5 with
     two output phases, 1/4 with even Q, 3/5 with a tap count the kernel
     walks in a runtime loop, 1/40 at NBFM's shape, whose residues the
-    kernel splits over 16 thread groups), atol 5e-5."""
+    kernel splits over 16 thread groups; scan58's AM stage 3/50 at O=384,
+    through the runtime loop with 5 residue groups, and its CW/BPSK stage
+    1/50 with 1,249 taps), atol 5e-5."""
     N, M = 16, 16
     rs = RationalResampler(P, Q, batch_shape=(N,))
     z = rng.standard_normal((2, M, rs.hist_len + Lc)).astype(np.float32)
@@ -194,24 +198,45 @@ def test_route_taps_hold_every_tap_once():
         np.testing.assert_array_equal(back, rs.ker_np)
 
 
-@pytest.mark.parametrize("modem,bandwidth", [("FM", 200000),
-                                             ("NBFM", 12500)])
+def _default_bandwidths():
+    from cubicsdr_tpu_torch.modems import make_modem, modem_names
+    # Each modem at its default bandwidth, and BPSK at scan58's 20 kHz.
+    return [(n, make_modem(n).default_sample_rate) for n in modem_names()
+            ] + [("BPSK", 20000)]
+
+
+# The exact plan (tb, groups, cq, threads) of every fused first stage
+# (P, Q, O) with Q > 5 that a registered modem reaches at 2.4-20 MS/s.
+_WIDE_Q_PLANS = {
+    (1, 40, 128): (1, 16, 40, 256),   # NBFM at 8 MS/s, BPSK 20 kHz at 2.4
+    (1, 64, 128): (1, 16, 49, 256),   # NBFM at 2.4 MS/s
+    (1, 50, 128): (1, 16, 50, 256),   # CW, BPSK 20 kHz (scan58)
+    (3, 50, 384): (1, 5, 50, 240),    # AM (scan58), I/Q at 2.4 MS/s
+    (6, 25, 768): (1, 1, 25, 96),     # I/Q
+    (5, 16, 640): (1, 1, 16, 80),     # FMS at 2.4 MS/s
+    (3, 25, 384): (2, 1, 25, 96),     # FSK, GMSK at 2.4 MS/s
+}
+
+
+@pytest.mark.parametrize("modem,bandwidth", _default_bandwidths())
 def test_route_plan_fits_every_fused_group(modem, bandwidth):
-    """Every group the pipeline fuses, at common SDR rates, gets a
-    shared-memory plan within the 227 KB an sm_90 block may hold; the FM
-    path keeps its whole batch of 8 tiles, every residue and the E table,
-    and NBFM (first stage 1/40 or 1/64) is fused, fits, and fills 256
-    threads with residue groups."""
+    """Every group the pipeline fuses, for every registered modem at its
+    default bandwidth and at common SDR rates, gets a shared-memory plan
+    within the 227 KB an sm_90 block may hold; the FM path keeps its whole
+    batch of 8 tiles, every residue and the E table; NBFM (first stage
+    1/40 or 1/64) is fused, fits, and fills 256 threads with residue
+    groups; every other stage with Q > 5 (AM's 3/50 at O=384, CW/BPSK's
+    1/50, ...) gets its own exact plan."""
     from cubicsdr_tpu_torch.ops.kernels.route import (
         SMEM_MAX, route_plan, route_taps)
     from cubicsdr_tpu_torch.receiver import (
         DemodGroupSpec, ReceiverPipeline)
-    fused_q = set()
+    fused = set()
     for fs in (2_400_000, 8_000_000, 10_000_000, 20_000_000):
         rx = ReceiverPipeline(fs, [DemodGroupSpec(modem, bandwidth, 2)],
                               device="cpu")
-        for fe, fused in zip(rx.frontends, rx.fused_route):
-            if not fused:
+        for fe, f in zip(rx.frontends, rx.fused_route):
+            if not f:
                 continue
             rs = fe._stage1
             kp, _ = route_taps(rs.ker_np, rs.Q)
@@ -223,8 +248,17 @@ def test_route_plan_fits_every_fused_group(modem, bandwidth):
             if rs.Q <= 5:
                 assert (groups, cq, threads) == (1, rs.Q, 128)
             else:
-                assert tb == 1 and threads == 256
-            fused_q.add(rs.Q)
-    assert fused_q, "no group was fused"
-    if modem == "NBFM":
-        assert max(fused_q) >= 40
+                if modem in ("FM", "NBFM"):
+                    assert tb == 1 and threads == 256
+                key = (rs.P, rs.Q, fe.tile)
+                assert (tb, groups, cq, threads) == _WIDE_Q_PLANS[key], key
+            fused.add((rs.P, rs.Q, fe.tile))
+    expect = {("FM", 200000): {(1, 5, 128)},
+              ("NBFM", 12500): {(1, 40, 128), (1, 64, 128)},
+              ("AM", 6000): {(3, 50, 384)},
+              ("CW", 500): {(1, 50, 128)},
+              ("BPSK", 20000): {(1, 50, 128)},
+              ("DSB", 5400): set()}
+    if (modem, bandwidth) in expect:
+        want = expect[(modem, bandwidth)]
+        assert want <= fused if want else not fused, fused

@@ -1,6 +1,7 @@
 """The port's live loop (``cubicsdr_tpu_torch/app/runner.py``) vs the JAX
 package's ``LiveReceiver`` on the same finite sources, on the CPU, plus
-regression tests for two faults of the reference loop (ADVICE.md).
+regression tests for faults of the reference loop (two from ADVICE.md,
+and the deferred finish's double read of the zoom view).
 
 Tolerances:
 - recorded WAVs, mix and sink audio: the pipeline tolerances (rms of the
@@ -316,3 +317,36 @@ def test_zoom_view_error_propagates():
         lr.run_blocks(max_blocks=1, wait=False)
     lr.stop()
     assert not lr.metrics.notes
+
+
+def test_zoom_off_during_the_deferred_finish():
+    """The deferred finish runs outside the step lock, so a zoom-off may
+    set ``zoom`` to None between its check and its use of the view; it
+    reads the view once (the JAX package's finish reads it twice and
+    raises AttributeError in the consumer now and then, as
+    tests/test_churn.py shows)."""
+    from cubicsdr_tpu_torch.ops.planar import PC
+    rx, ctl = build(T)
+    reads, fed = [], []
+
+    class View:
+        def feed(self, p):
+            fed.append(p.shape)
+
+    class Racy(LiveReceiver):
+        # Each read of ``zoom`` takes the next value: the view, then None.
+        zoom = property(lambda self: reads.pop(0) if reads else None,
+                        lambda self, v: None)
+
+    lr = Racy(rx, ctl, iter(()), waterfall_fft=256)
+    blk = synth_blocks(1)[0]
+    planes = (blk.real.copy(), blk.imag.copy())
+    snap, ctl_dev = lr._device_controls()
+    lr.state, out = lr.step(lr.state, ((torch.from_numpy(planes[0]),
+                                        torch.from_numpy(planes[1])),
+                                       ctl_dev))
+    disp = lr._fanout_dispatch(out, snap)
+    reads[:] = [View(), None]
+    lr._fanout_finish(disp, PC(*out["iq"]), out, planes)
+    assert fed == [(2, L)]
+    lr.stop()

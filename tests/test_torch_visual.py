@@ -227,7 +227,7 @@ def _tone_planes(fs, f, n, amp=1.0):
 
 def test_retune_pans_not_resets():
     fs, L = 1_000_000, 1 << 16
-    zv = ZoomSpectrumView(fs, L, fft_size=256)
+    zv = ZoomSpectrumView(fs, L, fft_size=256, device="cpu")
     zv.set_view(0.0, 250_000)               # resample_bw = 250 kHz
     assert zv.resample_bw == 250_000
     planes = _tone_planes(fs, 50_000, 8 * L)
@@ -251,7 +251,7 @@ def test_retune_pans_not_resets():
 
 def test_zoom_rescales_history():
     fs, L = 1_000_000, 1 << 16
-    zv = ZoomSpectrumView(fs, L, fft_size=256)
+    zv = ZoomSpectrumView(fs, L, fft_size=256, device="cpu")
     zv.set_view(0.0, 250_000)
     planes = _tone_planes(fs, 31_250, 8 * L)   # +1/8 of the 250k span
     for b in range(8):
@@ -273,7 +273,7 @@ def test_zoom_program_cache_reuse():
     """Zooming in then back out reuses the cached front of each revisited
     (P, Q, chunk)."""
     fs, L = 1_000_000, 20000
-    v = ZoomSpectrumView(fs, L, fft_size=128)
+    v = ZoomSpectrumView(fs, L, fft_size=128, device="cpu")
     step_full = v._step
     v.set_view(0.0, fs / 2)          # zoom in one step
     step_half = v._step
@@ -292,7 +292,7 @@ def test_zoom_program_cache_reuse():
 
 def test_prewarm_populates_cache_and_surfaces_failures(monkeypatch):
     fs, L = 1_000_000, 20000
-    v = ZoomSpectrumView(fs, L, fft_size=128)
+    v = ZoomSpectrumView(fs, L, fft_size=128, device="cpu")
     assert len(v._front_cache) == 1
     v.prewarm_adjacent()
     # Full-band view has one neighbor below (fs/2); nothing above.
@@ -332,3 +332,14 @@ def test_waterfall_roll_and_render(tmp_path):
 def test_gradient_interpolation():
     g = Gradient([(0.0, (0, 0, 0)), (1.0, (1, 0.5, 0))])
     np.testing.assert_allclose(g.generate(11)[5], [0.5, 0.25, 0], atol=1e-6)
+
+
+def test_zoom_view_default_device_is_the_card():
+    """Built without ``device``, the zoom view is on the card; a host with
+    no CUDA device raises instead of falling back to the CPU. Decided here,
+    at run time, not at collection."""
+    if torch.cuda.is_available():
+        assert ZoomSpectrumView(2.4e6, 2400).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ZoomSpectrumView(2.4e6, 2400)
