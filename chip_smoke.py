@@ -65,12 +65,35 @@ Phases, each printing one line:
    uninterrupted run's within 1e-6;
 11. live-loop throughput (the JAX package's ``bench.py`` live rows: a
    cycling source with back-pressure, 8 warm-up and 40 timed blocks) with
-   float32, int16 and int8 ring formats.
+   float32, int16 and int8 ring formats;
+12. the route kernel at the first stages only the critically sampled
+   'pfbch' channelizer fuses, over 128,000-sample channels: BPSK's 1/25
+   at 4 demods (its plan fills 219 KB of shared memory), FM-stereo's 1/2
+   at 2, and 2.4 MS/s FM-stereo's 5/8 at O=640 at 2 over 6 channels,
+   each against its plain version with cold, warm, bound and share as in
+   phase 3;
+13. the CLI on the card, in process (``app.cli.main``), on a synthesised
+   8 MS/s cf32 capture of scan58's band (3 blocks): ``demod`` FM, NBFM
+   and AM, ``rx`` on a saved session of scan58's 58 demods, ``waterfall``,
+   ``rx --channelizer pfbch`` and ``demod --channelizer single``, each
+   against the same command with ``--device cpu`` (WAVs at the audio
+   gates, waterfall lines as drawn, clipped to [0, 1], at 2e-3, NaN at
+   the same points), a tone above 40 dB through FM, NBFM
+   and AM, and the launches: 1 PFB + 6 route per scan58 block with
+   'pfbch2', 0 + 6 with 'pfbch', neither with 'single';
+14. ``serve`` on the card: a ``WebViewer`` on an ephemeral port around a
+   card ``LiveReceiver`` carrying scan58's session over the looped
+   capture, driven block by block: GET /api/state, /api/spectrum and
+   /api/waterfall.png; POST add (an NBFM demod), set bandwidth, set type
+   and remove, each a plan rebuild after which both kernels launch on the
+   next block; the mix and three surviving demods' audio against the same
+   sequence on a CPU harness; the ms from each POST to the end of the
+   first block on the new plan; 0 ring drops.
 
-Then one JSON line describing the kernels (launches on the demod16 main
-path and on every other path, error, cold/warm/plain ms, bound,
-roofline share; no
-single PyTorch call computes either function, so ``library_ms`` is null),
+Then (15) one JSON line describing the kernels (launches on the demod16
+main path and on every other path, the CLI's and serve's included, error,
+cold/warm/plain ms, bound, roofline share; no single PyTorch call
+computes either function, so ``library_ms`` is null),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 and no result line is printed. There is no CPU fallback: without a CUDA
@@ -103,6 +126,7 @@ RESUME_ATOL = 1e-6      # checkpoint resume (tests/test_checkpoint.py:50)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 COLD_BYTES = 150_000_000
+CENTER = 100e6          # the CLI and serve phases' capture centre
 LIBRARY_NOTE = {
     "pfbch2_planar": "none: no single PyTorch call computes a polyphase "
                      "FIR, an M-point transform and the parity flip",
@@ -290,6 +314,17 @@ def check_route(dev, P: int, Q: int, N: int, chan_len: int, rng,
             "max_abs_err": err, "warm_ms": cuda_ms(make(0)), "cold_ms": cold,
             "cold_sets": k, "plain_ms": cuda_ms(plain),
             **roofline(flops, nbytes, cold)}
+
+
+def route_line(c: dict, cases: list, smi: str, tag: str = "") -> None:
+    cases.append(c)
+    line(f"route {tag}{c['P']}/{c['Q']} N={c['N']} M={c['M']} O={c['O']} "
+         f"chan_len={c['chan_len']} plan {json.dumps(c['plan'])}: "
+         f"max_abs_err {c['max_abs_err']:.3g}; cold {c['cold_ms']:.4f}"
+         f" ms, warm {c['warm_ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+         f"ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+         f"{c['roofline_share']:.3f}, "
+         f"{c['achieved_tflop_per_s']:.2f} TFLOP/s [{smi}]")
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -790,6 +825,304 @@ def plan_throughput(plan, n_blocks: int = 10):
             "block_len": rx.block_len, "blocks": n_blocks}
 
 
+def write_cf32(path: Path, planes: torch.Tensor) -> None:
+    """Planes [2, n] as an interleaved float32 IQ capture file."""
+    x = planes.cpu().numpy()
+    np.stack([x[0], x[1]], axis=1).astype(np.float32).tofile(path)
+
+
+def cli_run(argv) -> tuple[dict, float]:
+    """``app.cli.main(argv)`` in this process: (kernel launches, wall
+    seconds, the device synchronised at the end)."""
+    from cubicsdr_tpu_torch.app import cli
+    reset_launches()
+    t0 = time.perf_counter()
+    if cli.main([str(a) for a in argv]) != 0:
+        raise AssertionError(f"cli {argv} failed")
+    launches = read_launches()
+    return launches, time.perf_counter() - t0
+
+
+def waterfall_capture():
+    """Wraps the port's Waterfall so that a CLI run's rendered buffer and
+    its produced line count are kept; returns (kept dict, restore)."""
+    from cubicsdr_tpu_torch.visual.waterfall import Waterfall
+    kept = {"lines": 0}
+    add, render = Waterfall.add_lines, Waterfall.render_png
+
+    def add_lines(self, pts):
+        kept["lines"] += len(np.atleast_2d(pts))
+        add(self, pts)
+
+    def render_png(self, path):
+        kept["buffer"] = self.buffer.copy()
+        render(self, path)
+
+    Waterfall.add_lines, Waterfall.render_png = add_lines, render_png
+
+    def restore():
+        Waterfall.add_lines, Waterfall.render_png = add, render
+    return kept, restore
+
+
+def check_cli(tmp: Path, plan, card: str = "cuda", fused_groups: int = 6):
+    """Phase 13. Each subcommand on the card (``card``) against
+    ``--device cpu``; returns (per command its launches, its seconds on
+    the card and the comparison; the capture and session paths)."""
+    from cubicsdr_tpu_torch.app.session import SessionMgr
+    from cubicsdr_tpu_torch.io.wav import read_wav
+    n = 3 * 2_048_000
+    cap, sess = tmp / "scan58.cf32", tmp / "scan58.json"
+    write_cf32(cap, plan.capture(n, card, seed=11))
+    s = SessionMgr(plan.manager(CENTER))
+    s.center_freq, s.sample_rate = int(CENTER), int(plan.fs)
+    s.save_session(str(sess))
+    fs, fm, nbfm, am = (int(plan.fs), plan.freqs[0][0], plan.freqs[1][0],
+                        plan.freqs[2][0])
+
+    def demod(modem, bw, f, *extra):
+        return ["demod", cap, "-r", fs, "-c", int(CENTER), "-f",
+                int(CENTER + f), "-m", modem, "-b", bw, *extra]
+
+    def demod_launches(modem, bw):
+        """(PFB, route) launches of a one-demod 'pfbch2' plan over the
+        capture: one of each per block of its own length."""
+        from cubicsdr_tpu_torch.receiver import (
+            DemodGroupSpec, ReceiverPipeline)
+        rx = ReceiverPipeline(fs, [DemodGroupSpec(modem, bw, 1)],
+                              device="cpu")
+        if rx.fused_route != [True]:
+            raise AssertionError(f"{modem} does not fuse")
+        return (-(-n // rx.block_len),) * 2
+
+    n_blocks = -(-n // 2_048_000)
+    cases = (  # name, argv, output suffix, tone Hz, (PFB, route) launches
+        ("demod_fm", demod("FM", 200000, fm), ".wav", 700.0,
+         demod_launches("FM", 200000)),
+        ("demod_nbfm", demod("NBFM", 12500, nbfm), ".wav", 1000.0,
+         demod_launches("NBFM", 12500)),
+        ("demod_am", demod("AM", 6000, am), ".wav", 400.0,
+         demod_launches("AM", 6000)),
+        ("rx", ["rx", sess, cap], ".wav", None,
+         (n_blocks, fused_groups * n_blocks)),
+        ("waterfall", ["waterfall", cap, "-r", fs, "--fft-size", 1024,
+                       "--lines", 64, "--lps", 60], ".png", None, (0, 0)),
+        ("rx_pfbch", ["rx", sess, cap, "--channelizer", "pfbch"], ".wav",
+         None, (0, fused_groups * n_blocks)),
+        ("demod_single", demod("FM", 200000, fm, "--channelizer", "single"),
+         ".wav", 700.0, (0, 0)),
+    )
+    rows = {}
+    for name, argv, ext, tone, want in cases:
+        runs = {}                    # "card" / "cpu": (output, kept, ...)
+        for side, dev in (("card", card), ("cpu", "cpu")):
+            out = tmp / f"{name}_{side}{ext}"
+            keep, restore = waterfall_capture()
+            try:
+                launches, secs = cli_run([*argv, "-o", out, "--device", dev])
+            finally:
+                restore()
+            runs[side] = (out, keep, launches, secs)
+        (out, g, launches, secs), (out_c, c, _, _) = runs["card"], runs["cpu"]
+        row = {"launches": launches, "card_s": secs}
+        if (launches["pfbch2_planar"],
+                launches["routed_shifted_resample"]) != want:
+            raise AssertionError(f"cli {name} launches {launches}, "
+                                 f"expected {want}")
+        if ext == ".wav":
+            a, ra = read_wav(str(out))
+            b, rb = read_wav(str(out_c))
+            if ra != rb or not np.isfinite(a).all():
+                raise AssertionError(f"cli {name}: bad WAV")
+            row.update(audio_close(a, b, f"cli {name} WAV"))
+            if tone is not None:
+                snr = tone_snr(a[0, a.shape[1] // 3:], tone, ra)
+                if not snr > 40:
+                    raise AssertionError(f"cli {name} tone SNR {snr:.1f}")
+                row["tone_snr_db"] = snr
+        else:
+            if g["lines"] != c["lines"] or g["lines"] < 8:
+                raise AssertionError(f"waterfall lines {g['lines']} vs "
+                                     f"{c['lines']}")
+            # The stream's first two lines are 0/0-conditioned (phase 9).
+            # The lines are compared as the waterfall draws them, clipped
+            # to [0, 1]: below the floor the display math is log10 near
+            # its zero crossing, where float32 rounding moves a point by
+            # more than 2e-3 between any two implementations (on this
+            # capture the port's and the JAX package's CPU runs differ by
+            # 3.4e-3 at a point at -1.23, drawn as the floor by both).
+            k = min(g["lines"], 64) - 2
+            a, b = g["buffer"][-k:], c["buffer"][-k:]
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+            np.testing.assert_allclose(np.clip(a, 0, 1), np.clip(b, 0, 1),
+                                       atol=WF_ATOL, err_msg="cli waterfall")
+            ok = np.isfinite(a)
+            row.update(drawn_points_err=float(np.abs(
+                np.clip(a[ok], 0, 1) - np.clip(b[ok], 0, 1)).max()),
+                raw_points_err=float(np.abs(a[ok] - b[ok]).max()),
+                lines=g["lines"], nan_points=int((~ok).sum()))
+            if out.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("cli waterfall wrote no PNG")
+        if name.startswith("rx"):
+            row["msamples_per_s"] = n / secs / 1e6
+        rows[name] = row
+    return rows, (cap, sess)
+
+
+# Phase 14's plan edits, each a rebuild: index 58 is the added demod.
+SERVE_EDITS = (
+    ("add", {"action": "add", "type": "NBFM", "bandwidth": 12500}),
+    ("set bandwidth", {"action": "set", "index": 58, "key": "bandwidth",
+                       "value": 10000}),
+    ("set type", {"action": "set", "index": 58, "key": "type",
+                  "value": "AM"}),
+    ("remove", {"action": "remove", "index": 58}),
+)
+SERVE_ROWS = [0, 16, 32]     # FM, NBFM and AM row 0 survive every edit
+
+
+def serve_harness(device: str, sess: Path, cap: Path):
+    """A live receiver on ``device`` carrying the session over the looped
+    capture (its producer never starts: blocks are fed one by one), a
+    subset sink pulling SERVE_ROWS' audio, and its WebViewer."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.app.session import SessionMgr
+    from cubicsdr_tpu_torch.app.webview import WebViewer
+    from cubicsdr_tpu_torch.io import FileIQSource
+    from cubicsdr_tpu_torch.receiver import (
+        DemodulatorMgr, ReceiverPipeline, controls_from_manager,
+        plan_from_manager)
+    mgr = DemodulatorMgr()
+    s = SessionMgr(mgr)
+    if not s.load_session(str(sess)):
+        raise AssertionError("cannot load the scan58 session")
+    specs, keyed = plan_from_manager(mgr)
+    rx = ReceiverPipeline(s.sample_rate, specs, device=device)
+    src = FileIQSource(str(cap), s.sample_rate, rx.block_len, loop=True)
+    blocks = []
+
+    def on_block(o):
+        blocks.append((o["mix"].copy(),
+                       [(g.get("audio_rows"), g.get("audio"))
+                        for g in o["groups"]]))
+
+    lr = LiveReceiver(rx, controls_from_manager(mgr, rx, keyed,
+                                                s.center_freq), src,
+                      center_freq=s.center_freq, waterfall_fft=1024,
+                      waterfall_lines=64, on_block=on_block)
+    viewer = WebViewer(lr, mgr, keyed, port=0)
+    if not viewer.control({"action": "audio_output", "name": "rows",
+                           "backend": "null", "demods": SERVE_ROWS})["ok"]:
+        raise AssertionError("serve: subset sink refused")
+    return lr, viewer, src, blocks
+
+
+def feed_block(lr, src) -> None:
+    """One block of the looped capture into the ring, then through the
+    loop; a block the ring refuses is a drop and fails the phase."""
+    blk = next(src)
+    if not lr.ring.write(np.ascontiguousarray(blk.real),
+                         np.ascontiguousarray(blk.imag)):
+        raise AssertionError("serve: the ring dropped a block")
+    if lr.run_blocks(max_blocks=1, wait=False) != 1:
+        raise AssertionError("serve: a block did not run")
+
+
+def http(port: int, path: str, body=None) -> bytes:
+    """A request to the local WebViewer, never through a proxy."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(req, timeout=120) as r:
+        return r.read()
+
+
+def check_serve(sess: Path, cap: Path, plan, card: str = "cuda"):
+    """Phase 14 on ``card``. Returns (launches after the rebuilds,
+    summary)."""
+    add_freq = CENTER + plan.freqs[1][1]           # NBFM station 1
+    edits = [(name, dict(cmd, freq=add_freq) if name == "add" else cmd)
+             for name, cmd in SERVE_EDITS]
+    lr, viewer, src, got = serve_harness(card, sess, cap)
+    viewer.start()
+    summary, total = {"rebuilds": []}, {"pfbch2_planar": 0,
+                                        "routed_shifted_resample": 0}
+    try:
+        for _ in range(2):
+            feed_block(lr, src)
+        st = json.loads(http(viewer.port, "/api/state"))
+        if len(st["demods"]) != 58 or not any(d["level"] for d in
+                                              st["demods"]):
+            raise AssertionError(f"serve /api/state: {len(st['demods'])} "
+                                 f"demods")
+        sp = json.loads(http(viewer.port, "/api/spectrum"))
+        png = http(viewer.port, "/api/waterfall.png")
+        if len(sp["points"]) != 1024 or png[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("serve: spectrum or waterfall missing")
+        for name, cmd in edits:
+            old = lr.pipeline
+            t0 = time.perf_counter()
+            res = json.loads(http(viewer.port, "/api/control", cmd))
+            t1 = time.perf_counter()
+            if not res.get("ok") or lr.pipeline is old:
+                raise AssertionError(f"serve {name}: no rebuild ({res})")
+            reset_launches()
+            feed_block(lr, src)
+            launches = read_launches()
+            t2 = time.perf_counter()
+            groups = len(lr.pipeline.groups)
+            if (lr.pipeline.fused_route != [True] * groups
+                    or launches != {"pfbch2_planar": 1,
+                                    "routed_shifted_resample": groups}):
+                raise AssertionError(f"serve {name}: launches {launches} "
+                                     f"for {groups} groups")
+            for k in total:
+                total[k] += launches[k]
+            summary["rebuilds"].append({
+                "edit": name, "groups": groups, "launches": launches,
+                "post_ms": (t1 - t0) * 1e3, "first_block_ms": (t2 - t1) * 1e3,
+                "post_to_first_block_ms": (t2 - t0) * 1e3})
+        drops = (lr.ring.dropped_samples,
+                 lr.metrics.snapshot()["pipeline"]["dropped"])
+    finally:
+        viewer.stop()
+        lr.stop()
+    if drops != (0, 0):
+        raise AssertionError(f"serve: ring/pipeline drops {drops}")
+    summary["ring_dropped_samples"] = drops[0]
+
+    lr_c, viewer_c, src_c, got_c = serve_harness("cpu", sess, cap)
+    for _ in range(2):
+        feed_block(lr_c, src_c)
+    for name, cmd in edits:
+        if not viewer_c.control(cmd)["ok"]:
+            raise AssertionError(f"serve on the CPU: {name} refused")
+        feed_block(lr_c, src_c)
+    lr_c.stop()
+    if not len(got) == len(got_c) == 2 + len(edits):
+        raise AssertionError(f"serve blocks {len(got)} vs {len(got_c)}")
+    worst = {"rms": 0.0, "q995": 0.0}
+    for b, ((mix, rows), (mix_c, rows_c)) in enumerate(zip(got, got_c)):
+        pairs = [(mix, mix_c, "mix")]
+        for gi, ((r, a), (rc, ac)) in enumerate(zip(rows, rows_c)):
+            if r != rc:
+                raise AssertionError(f"serve block {b} group {gi}: rows "
+                                     f"{r} vs {rc}")
+            if a is not None:
+                pairs.append((a, ac, f"group {gi} rows {r}"))
+        if len(pairs) != 1 + len(SERVE_ROWS):
+            raise AssertionError(f"serve block {b}: {len(pairs) - 1} "
+                                 f"surviving row sets pulled")
+        for a, c, what in pairs:
+            e = audio_close(a, c, f"serve block {b} {what}")
+            worst = {k: max(worst[k], e[k]) for k in worst}
+    summary["audio_vs_cpu"] = worst
+    return total, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -840,15 +1173,14 @@ def main() -> int:
                               (3, 5, 16, BLOCK // 8), (1, 40, 16, BLOCK // 8),
                               (1, 128, 16, 131072), (3, 50, 16, SCAN_CHAN),
                               (1, 50, 4, SCAN_CHAN), (1, 50, 16, SCAN_CHAN)):
-        c = check_route(dev, P, Q, N, chan_len, rng)
-        route_cases.append(c)
-        line(f"route {P}/{Q} N={N} O={c['O']} chan_len={chan_len} "
-             f"plan {json.dumps(c['plan'])}: "
-             f"max_abs_err {c['max_abs_err']:.3g}; cold {c['cold_ms']:.4f}"
-             f" ms, warm {c['warm_ms']:.4f} ms, plain {c['plain_ms']:.4f} "
-             f"ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']}), share "
-             f"{c['roofline_share']:.3f}, "
-             f"{c['achieved_tflop_per_s']:.2f} TFLOP/s [{smi}]")
+        route_line(check_route(dev, P, Q, N, chan_len, rng), route_cases,
+                   smi)
+    # Phase 12: the first stages only 'pfbch' fuses (128,000-sample
+    # channels): BPSK's 1/25 with its 219 KB plan, FM-stereo's 1/2, and
+    # 2.4 MS/s FM-stereo's 5/8 at O=640 over 6 channels.
+    for P, Q, N, M in ((1, 25, 4, 16), (1, 2, 2, 16), (5, 8, 2, 6)):
+        route_line(check_route(dev, P, Q, N, 128_000, rng, M=M),
+                   route_cases, smi, "pfbch ")
 
     launches, worst = check_main_path(dev)
     line(f"main path demod16 x3 blocks: launches {launches}, vs CPU "
@@ -888,6 +1220,28 @@ def main() -> int:
                     ("live16_int8", np.int8)):
         r = live_throughput(rx, dt)
         line(json.dumps({"row": row, **r, "block_len": BLOCK, "card": smi}))
+    del rx
+
+    from cubicsdr_tpu_torch.utils.synth import scan58
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_rows, (cap, sess) = check_cli(Path(tmp), scan58())
+        for name, r in cli_rows.items():
+            line(f"cli {name} on the card vs --device cpu: "
+                 f"{json.dumps(r)} [{smi}]")
+        for name in ("rx", "rx_pfbch"):
+            line(json.dumps({
+                "row": f"cli_{name}_scan58", "msamples_per_s":
+                cli_rows[name]["msamples_per_s"], "seconds":
+                cli_rows[name]["card_s"], "samples": 3 * 2_048_000,
+                "note": "wall time of cli.main: file read, plan build, "
+                        "3 blocks, WAV write", "card": smi}))
+        serve_launches, serve = check_serve(sess, cap, scan58())
+        line(f"serve scan58 on the card, 4 plan rebuilds: launches "
+             f"{serve_launches}, {json.dumps(serve)} [{smi}]")
+        line(json.dumps({"row": "serve_rebuild_scan58", "post_to_first_"
+                         "block_ms": [r["post_to_first_block_ms"]
+                                      for r in serve["rebuilds"]],
+                         "card": smi}))
 
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
@@ -897,7 +1251,10 @@ def main() -> int:
                     "demod16": launches[name], "scan58": scan_launches[name],
                     "coverage": cov_launches[name],
                     "live_scan58": live_scan_launches[name],
-                    "live16": live_launches[name]},
+                    "live16": live_launches[name],
+                    **{f"cli_{k}": r["launches"][name]
+                       for k, r in cli_rows.items()},
+                    "serve_after_rebuilds": serve_launches[name]},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

@@ -8,8 +8,11 @@ contract ``apply(state, x) -> (state, y)``; their constant taps, DFT and
 Toeplitz matrices are registered buffers, so ``.to(device)`` moves them.
 
 Ported so far: the receive step (``receiver.pipeline.ReceiverPipeline``
-with ``dtype=PLANAR`` and ``chan_mode="pfbch2"``) with the whole modem
-bank, analog and digital, and the live loop (``app.runner``). Its two hot
+with ``dtype=PLANAR`` in every channelizer mode, 'pfbch2', 'pfbch' and
+'single') with the whole modem bank, analog and digital, the live loop
+(``app.runner``), and the app shell: the web control plane
+(``app.webview``), the CLI (``python -m cubicsdr_tpu_torch``), config,
+sessions, bookmarks, rig control and the IQ sources. Its two hot
 stages run hand-written CUDA kernels for Hopper
 (``csrc/pfb.cu``, ``csrc/route.cu``) when ``use_kernels=True`` and the data
 lies on a CUDA device; on CPU tensors the same wrappers run their plain

@@ -2,14 +2,15 @@
 (``cubicsdr_tpu/receiver/pipeline.py``; ref: SURVEY.md §3.2, the
 SDRPostThread -> PreThread -> DemodulatorThread -> AudioThread chain):
 
-    iq[L] -> PFBCH2 channelizer -> DC blocker on channel 0
+    iq[L] -> PFBCH2 / PFBCH channelizer -> DC blocker on channel 0
+          (or 'single': the DC blocker on the whole stream, one channel)
           -> route each demod to its nearest channel
           -> NCO + resample (fused CUDA kernel with use_kernels)
           -> modem kits -> squelch/level -> stereo upmix -> gain/mute/solo mix
 
 Retunes, squelch levels, gains and mutes are per-block control tensors.
-The port carries planar IQ (``dtype=PLANAR``) through the 'pfbch2'
-channelizer, with every modem of the registry. Digital groups
+The port carries planar IQ (``dtype=PLANAR``) through every channelizer
+mode of the JAX package, with every modem of the registry. Digital groups
 (modem_type == "digital") ride the same chain: their kits emit symbol
 streams instead of audio (ref: ModemDigital.cpp:56-83), the signal meter
 runs on their channel IQ, and they add nothing to the audio mix (the
@@ -28,7 +29,8 @@ from torch import nn
 
 from cubicsdr_tpu_torch.io.sources import optimal_channel_count
 from cubicsdr_tpu_torch.modems import make_modem
-from cubicsdr_tpu_torch.ops.channelizer import ChannelizerPFB2, channel_centers
+from cubicsdr_tpu_torch.ops.channelizer import (
+    ChannelizerPFB, ChannelizerPFB2, channel_centers)
 from cubicsdr_tpu_torch.ops.iir import DCBlocker
 from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
 from cubicsdr_tpu_torch.ops.resample import design_ratio
@@ -63,8 +65,12 @@ class ReceiverPipeline(StreamOp):
     default to the card's path: ``device="cuda"`` raises where there is no
     CUDA device (pass ``device="cpu"`` to run on the host), and
     ``use_kernels=True`` (pass False for the plain path, the JAX package's
-    ``use_pallas=False``). Only ``chan_mode='pfbch2'`` and
-    ``dtype=PLANAR`` exist in the port so far."""
+    ``use_pallas=False``).
+
+    chan_mode: 'pfbch' | 'pfbch2' | 'single' (ref modes:
+    SDRPostThreadChannelizerType, src/sdr/SDRPostThread.h:25-27; 'single'
+    is the numChannels==1 DC-blocked passthrough, ref: SDRPostThread.cpp:
+    248-301). Only ``dtype=PLANAR`` exists in the port so far."""
 
     def __init__(self, sample_rate: float, groups: list[DemodGroupSpec],
                  chan_mode: str = "pfbch2", num_channels: int | None = None,
@@ -76,17 +82,26 @@ class ReceiverPipeline(StreamOp):
             raise RuntimeError(
                 "ReceiverPipeline runs on the card by default and this host "
                 "has no CUDA device; pass device='cpu' to run on the host")
-        if chan_mode != "pfbch2" or dtype != PLANAR:
-            raise ValueError("the port has chan_mode='pfbch2' with "
-                             "dtype=PLANAR only")
+        if dtype != PLANAR:
+            raise ValueError("the port has dtype=PLANAR only")
+        if chan_mode not in ("pfbch", "pfbch2", "single"):
+            raise ValueError(f"unknown chan_mode {chan_mode!r}")
         self.sample_rate = float(sample_rate)
         self.audio_rate = int(audio_rate)
         self.chan_mode = chan_mode
         self.groups = list(groups)
         self.dtype = dtype
         self.use_kernels = bool(use_kernels)
-        self.M = num_channels or optimal_channel_count(sample_rate)
-        self.chan_rate = self.sample_rate / self.M * 2
+        # Whether the caller pinned block_len (plan rebuilds forward an
+        # explicit choice; a default one is re-derived).
+        self.block_len_explicit = block_len is not None
+        if chan_mode == "single":
+            self.M = 1
+            self.chan_rate = self.sample_rate
+        else:
+            self.M = num_channels or optimal_channel_count(sample_rate)
+            self.chan_rate = (self.sample_rate / self.M
+                              * (2 if chan_mode == "pfbch2" else 1))
 
         self._modems = []
         self.is_digital = []
@@ -111,11 +126,21 @@ class ReceiverPipeline(StreamOp):
 
         # Channelizer + DC blocker (channel 0 carries the tuner DC spike,
         # ref: SDRPostThread.cpp:364-375).
-        self.channelizer = ChannelizerPFB2(self.M, use_kernels=use_kernels)
-        self._decim = self.M // 2
+        if chan_mode == "pfbch":
+            self.channelizer = ChannelizerPFB(self.M)
+            self._decim = self.M
+        elif chan_mode == "pfbch2":
+            self.channelizer = ChannelizerPFB2(self.M,
+                                               use_kernels=use_kernels)
+            self._decim = self.M // 2
+        else:
+            self.channelizer = None
+            self._decim = 1
         self.dc = DCBlocker(0.0005)
+        centers = (channel_centers(self.M, self.sample_rate)
+                   if self.channelizer is not None else np.zeros(1))
         self.register_buffer("centers", torch.from_numpy(
-            channel_centers(self.M, self.sample_rate).astype(np.float32)))
+            centers.astype(np.float32)))
 
         self.frontends = nn.ModuleList(frontends)
         self.block_len = block_len or self.choose_block_len()
@@ -124,7 +149,7 @@ class ReceiverPipeline(StreamOp):
         # Fused route+frontend: groups whose first resampler stage admits a
         # fused tile skip the per-demod channel gather entirely.
         self.fused_route = [False] * len(self.groups)
-        if use_kernels:
+        if use_kernels and self.channelizer is not None:
             for gi, fe in enumerate(self.frontends):
                 rfe = RoutedChannelFrontend.upgrade(fe, self.M,
                                                     self._chan_len)
@@ -187,7 +212,8 @@ class ReceiverPipeline(StreamOp):
     # --- state ---
     def init_state(self):
         return {
-            "chan": self.channelizer.init_state(),
+            "chan": (self.channelizer.init_state()
+                     if self.channelizer is not None else ()),
             "dc": self.dc.init_state(),
             "groups": tuple(
                 (fe.init_state(), kit.init_state(), gate.init_state())
@@ -230,12 +256,19 @@ class ReceiverPipeline(StreamOp):
         passthrough."""
         iq, controls = inputs
         dev = self.device
-        st_chan, chans = self.channelizer.apply(state["chan"], iq)
-        # DC-block channel 0 (tuner spike), written in place into the
-        # channelizer's fresh output.
-        st_dc, ch0 = self.dc.apply(state["dc"], PC(chans.re[0], chans.im[0]))
-        chans.re[0] = ch0.re
-        chans.im[0] = ch0.im
+        if self.channelizer is not None:
+            st_chan, chans = self.channelizer.apply(state["chan"], iq)
+            # DC-block channel 0 (tuner spike), written in place into the
+            # channelizer's fresh output.
+            st_dc, ch0 = self.dc.apply(state["dc"],
+                                       PC(chans.re[0], chans.im[0]))
+            chans.re[0] = ch0.re
+            chans.im[0] = ch0.im
+        else:
+            # 'single': the whole DC-blocked stream is the one channel.
+            st_chan = ()
+            st_dc, dcq = self.dc.apply(state["dc"], iq)
+            chans = PC(dcq.re[None], dcq.im[None])
 
         group_states, group_outs = [], []
         audio_all, peaks_all, gains_all, active_all = [], [], [], []

@@ -58,9 +58,12 @@ def _pairs(rx_jax, rx):
     for attr in ("M", "chan_rate", "block_len", "audio_len"):
         yield attr, getattr(rx_jax, attr), getattr(rx, attr)
     ch_j, ch = rx_jax.channelizer, rx.channelizer
-    yield "channelizer.h_poly", ch_j.h_poly, ch.h_poly
-    yield "channelizer.c.re", np.asarray(ch_j.c_pc.re)[:, 0], ch.c_re
-    yield "channelizer.c.im", np.asarray(ch_j.c_pc.im)[:, 0], ch.c_im
+    if (ch_j is None) != (ch is None):
+        raise ValueError("one pipeline has a channelizer, the other not")
+    if ch is not None:                       # 'single' mode has none
+        yield "channelizer.h_poly", ch_j.h_poly, ch.h_poly
+        yield "channelizer.c.re", np.asarray(ch_j.c_pc.re)[:, 0], ch.c_re
+        yield "channelizer.c.im", np.asarray(ch_j.c_pc.im)[:, 0], ch.c_im
     for gi, (fe_j, fe) in enumerate(zip(rx_jax.frontends, rx.frontends)):
         for si, (a, b) in enumerate(zip(_stages(fe_j.resampler),
                                         _stages(fe.resampler))):

@@ -211,6 +211,19 @@ class Plan:
                 noise: float = 0.01) -> torch.Tensor:
         return synth_capture(self.stations, n, self.fs, device, seed, noise)
 
+    def manager(self, center: float):
+        """A DemodulatorMgr holding the plan's demods, group by group, at
+        ``center`` + each offset: what a saved session of this plan
+        loads (its groups are the plan's specs, in order)."""
+        from cubicsdr_tpu_torch.receiver import DemodulatorMgr
+        mgr = DemodulatorMgr()
+        for spec, freqs in zip(self.specs, self.freqs):
+            for f in freqs:
+                d = mgr.new_demodulator(center + float(f), spec.modem_name,
+                                        spec.bandwidth)
+                d.write_modem_settings(spec.settings_dict)
+        return mgr
+
 
 def _slots(offset: float, channels, n: int) -> list:
     """n demod offsets at ``offset`` Hz from the centres of ``channels``

@@ -43,6 +43,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_structure(tree):
+    """A comparable description of ``tree``'s nodes without its leaves
+    (the ``jax.tree.structure`` of the nest): node types, dict keys and
+    child counts; two nests with equal structures map together."""
+    if isinstance(tree, dict):
+        return (dict, tuple((k, tree_structure(tree[k]))
+                            for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(tree_structure(t) for t in tree))
+    return None if tree is None else "*"
+
+
 def tree_unflatten(like, leaves):
     """Rebuild ``like``'s structure from ``leaves`` given in
     ``tree_leaves`` order (dict insertion order is kept)."""

@@ -40,8 +40,10 @@ class Waterfall:
         self.buffer[-n:] = points[-n:]
 
     def render_rgb(self) -> np.ndarray:
-        """[lines, fft_size, 3] float RGB via the palette."""
-        idx = np.clip(self.buffer * 255.0, 0, 255).astype(np.int32)
+        """[lines, fft_size, 3] float RGB via the palette. A NaN point
+        (early lines of a stream can hold some) renders as the floor."""
+        idx = np.clip(np.nan_to_num(self.buffer) * 255.0, 0,
+                      255).astype(np.int32)
         return self._palette[idx]
 
     def render_png(self, path: str):

@@ -44,12 +44,24 @@ def test_port_imports_without_jax():
          "import cubicsdr_tpu_torch.utils.interop\n" + _CHECK)
 
 
+# The app shell's modules: the port keeps its own copies of the JAX
+# package's host-only ones.
+_APP_SHELL = (
+    "cubicsdr_tpu_torch.io.sources", "cubicsdr_tpu_torch.io.devices",
+    "cubicsdr_tpu_torch.io.net", "cubicsdr_tpu_torch.app.cli",
+    "cubicsdr_tpu_torch.app.webview", "cubicsdr_tpu_torch.app.config",
+    "cubicsdr_tpu_torch.app.session", "cubicsdr_tpu_torch.app.bookmarks",
+    "cubicsdr_tpu_torch.app.rig", "cubicsdr_tpu_torch.app.digital_console",
+    "cubicsdr_tpu_torch.__main__")
+
+
 @pytest.mark.parametrize("module", [
     "cubicsdr_tpu_torch.app.runner", "cubicsdr_tpu_torch.app.checkpoint",
     "cubicsdr_tpu_torch.visual", "cubicsdr_tpu_torch.receiver.manager",
-    "cubicsdr_tpu_torch.utils.metrics"])
+    "cubicsdr_tpu_torch.utils.metrics", *_APP_SHELL])
 def test_live_loop_modules_import_without_jax(module):
-    """The live loop runs on the port's own ring, recorder and audio
+    """The live loop and the app shell run on the port's own ring,
+    recorder, audio, IQ source, config, session, bookmark, rig and console
     modules: neither jax nor any module of the JAX package is loaded."""
     _run(f"import sys\nimport {module}\n" + _CHECK)
 
@@ -60,6 +72,7 @@ def test_every_port_module_imports_alone():
     mods = _port_modules()
     assert "cubicsdr_tpu_torch.native" in mods
     assert "cubicsdr_tpu_torch.io.soapy" in mods
+    assert set(_APP_SHELL) <= set(mods), set(_APP_SHELL) - set(mods)
     _run("import sys, importlib\n"
          f"for m in {mods!r}:\n"
          "    importlib.import_module(m)\n" + _CHECK)
@@ -84,6 +97,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     """No import statement, at module level or inside a function, of jax or
     cubicsdr_tpu in the port's sources or in chip_smoke.py."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scanned = {str(f.relative_to(ROOT).with_suffix("")).replace("/", ".")
+               for f in files}
+    assert set(_APP_SHELL) <= scanned, set(_APP_SHELL) - scanned
     bad = [hit for f in files for hit in _foreign_imports(f)]
     assert not bad, bad
 

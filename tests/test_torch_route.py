@@ -156,7 +156,12 @@ def _kernel_order(rs, z, chan_idx, omega, phase_w0):
                                     (1, 4, 4 * 128 * 10), (3, 5, 640 * 8),
                                     (1, 40, 40 * 128 * 2),
                                     (3, 50, 50 * 128 * 2),
-                                    (1, 50, 50 * 128 * 2)])
+                                    (1, 50, 50 * 128 * 2),
+                                    (1, 2, 2 * 128 * 8),
+                                    (1, 25, 25 * 128 * 2),
+                                    (1, 20, 20 * 128 * 2),
+                                    (1, 32, 32 * 128 * 2),
+                                    (5, 8, 8 * 128 * 2)])
 def test_kernel_layout_matches_plain(rng, P, Q, Lc):
     """The CUDA kernel's polyphase tap layout, evaluated in its summation
     order, equals the plain version (route 1/5 on the main path, 2/5 with
@@ -164,7 +169,10 @@ def test_kernel_layout_matches_plain(rng, P, Q, Lc):
     walks in a runtime loop, 1/40 at NBFM's shape, whose residues the
     kernel splits over 16 thread groups; scan58's AM stage 3/50 at O=384,
     through the runtime loop with 5 residue groups, and its CW/BPSK stage
-    1/50 with 1,249 taps), atol 5e-5."""
+    1/50 with 1,249 taps; the stages only the critically sampled 'pfbch'
+    mode fuses: 1/2 with 8 tiles per batch, 1/25 with its 219 KB plan,
+    1/20 and 1/32 with 4 and 8 residue groups, and 5/8 at O=640 through
+    the runtime loop), atol 5e-5."""
     N, M = 16, 16
     rs = RationalResampler(P, Q, batch_shape=(N,))
     z = rng.standard_normal((2, M, rs.hist_len + Lc)).astype(np.float32)
@@ -206,7 +214,9 @@ def _default_bandwidths():
 
 
 # The exact plan (tb, groups, cq, threads) of every fused first stage
-# (P, Q, O) with Q > 5 that a registered modem reaches at 2.4-20 MS/s.
+# (P, Q, O) with Q > 5 that a registered modem reaches at 2.4-20 MS/s, in
+# either channelizer mode (tests/test_torch_channel_modes.py checks
+# 'pfbch').
 _WIDE_Q_PLANS = {
     (1, 40, 128): (1, 16, 40, 256),   # NBFM at 8 MS/s, BPSK 20 kHz at 2.4
     (1, 64, 128): (1, 16, 49, 256),   # NBFM at 2.4 MS/s
@@ -215,6 +225,11 @@ _WIDE_Q_PLANS = {
     (6, 25, 768): (1, 1, 25, 96),     # I/Q
     (5, 16, 640): (1, 1, 16, 80),     # FMS at 2.4 MS/s
     (3, 25, 384): (2, 1, 25, 96),     # FSK, GMSK at 2.4 MS/s
+    # Only the critically sampled 'pfbch' mode fuses these.
+    (1, 25, 128): (3, 5, 25, 240),    # BPSK 20 kHz at 8 MS/s
+    (1, 20, 128): (4, 4, 20, 256),    # BPSK 20 kHz at 2.4 MS/s
+    (1, 32, 128): (2, 8, 32, 256),    # NBFM at 2.4 MS/s
+    (5, 8, 640): (1, 1, 8, 80),       # FMS 250 kHz at 2.4 MS/s
 }
 
 
