@@ -27,7 +27,8 @@ Phases, each printing one line:
    its device time warm (8 calls on one buffer set in a CUDA graph, the
    buffers L2-resident) and cold (a graph over distinct buffer sets totalling
    150 MB, 3x the L2), its bound (bytes over 3.35 TB/s or FLOPs over
-   67 TFLOP/s f32, whichever is larger, from the shapes) and the share of
+   67 TFLOP/s f32, whichever is larger, from the shapes; the PFB's
+   transform counted as an M-point FFT for every M) and the share of
    the bound the cold time reaches (a share above 1 fails the script);
 4. the main path — ReceiverPipeline(use_kernels=True) at 8 MS/s with 16
    FM demods and 1,024,000-sample blocks (the JAX package's demod16
@@ -90,10 +91,33 @@ Phases, each printing one line:
    sequence on a CPU harness; the ms from each POST to the end of the
    first block on the new plan; 0 ring drops.
 
-Then (15) one JSON line describing the kernels (launches on the demod16
-main path and on every other path, the CLI's and serve's included, error,
-cold/warm/plain ms, bound, roofline share; no single PyTorch call
-computes either function, so ``library_ms`` is null),
+15. the route kernel's streaming plan (one tile per batch, the window's
+   residue rows read from global memory and the taps staged per pass) at
+   the stage shapes no resident plan fits, over the channel lengths the
+   pipeline gives them: 3/307 (NBFM 5 kHz at 1.024 MS/s), 1/467 and 2/467
+   (NBFM at 1.4 MS/s), 2/3413 (NBFM 500 Hz at 2.56 MS/s) and 4/317 (the
+   digital modems at 30.72 MS/s), 16 demods each, against the plain
+   version with cold, warm, bound and share as in phase 3;
+16. the PFB kernel at M = 140 and 246 (70 and 122.88 MS/s captures: one
+   staged window, F tiled over blocks of output channels), likewise;
+17. ``demod`` on the card against ``--device cpu`` at those shapes: NBFM
+   5 kHz on a 1.024 MS/s capture and FM on a 70 MS/s capture (M=140),
+   WAVs at the audio gates, a tone, one PFB and one route launch per
+   block;
+18. ``parallel.ShardedReceiver`` on a 1x1 mesh under NCCL, with its
+   defaults (the card, both kernels), on scan58 over 3 blocks against the
+   unsharded card pipeline at the pipeline's gates, 1 PFB and 6 route
+   launches per block, and the sharded and unsharded steps' MS/s;
+19. ``multihost`` with 2 worker processes on the one card (time=2; NCCL
+   takes one rank per GPU, so the phase asks for host collectives: gloo
+   on host copies), scan58, each rank verified against the unsharded
+   pipeline it computes, and a timed phase, bound by those copies.
+
+Then (20) one JSON line describing the kernels (launches on the demod16
+main path and on every other path, the CLI's, serve's, the sharded and
+the multihost ranks' included, error, cold/warm/plain ms, bound,
+roofline share, every case; no single PyTorch call computes either
+function, so ``library_ms`` is null),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 and no result line is printed. There is no CPU fallback: without a CUDA
@@ -103,6 +127,7 @@ device the script fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -236,13 +261,13 @@ def check_pfb(dev, M: int, n_steps: int, parity: int, rng,
         raise AssertionError(f"PFB M={M}: kernel vs plain max err {err}")
     nbytes = 4 * (2 * z_len + 2 * M * n_steps + M * ch.J)
     # Per step: the FIR (2 planes x M*J FMAs, 2 flops each), then the
-    # form's own transform: (M/2) log2 M radix-2 butterflies (a complex
-    # product and two complex sums, 10 flops) and c_k (6 flops per
-    # output); or M*M complex MACs (8 flops).
+    # transform as the function needs it, whatever form the kernel
+    # computes: an M-point FFT, 5 M log2 M flops (radix 2: (M/2) log2 M
+    # butterflies of a complex product and two complex sums; the same
+    # count stands for mixed radix), and c_k (6 flops per output).
     form = pfb_form(M, ch.J)
-    transform = (10 * (M // 2) * (M.bit_length() - 1) + 6 * M
-                 if form == "fft" else 8 * M * M)
-    flops = (4 * M * ch.J + transform) * n_steps
+    transform = 5 * M * math.log2(M) + 6 * M
+    flops = int((4 * M * ch.J + transform) * n_steps)
 
     def make(i):
         while len(planes) <= i:
@@ -253,7 +278,8 @@ def check_pfb(dev, M: int, n_steps: int, parity: int, rng,
     cold, k = cold_ms(make, nbytes)
     return {"M": M, "J": ch.J, "n_steps": n_steps, "parity": parity,
             "form": form,
-            "steps_per_tile": pfb_plan(M, ch.J)[0], "max_abs_err": err,
+            "steps_per_tile": pfb_plan(M, ch.J)[0],
+            "f_rows_per_fold": pfb_plan(M, ch.J)[3], "max_abs_err": err,
             "warm_ms": cuda_ms(make(0)), "cold_ms": cold, "cold_sets": k,
             "plain_ms": cuda_ms(lambda: pfbch2_planar_plain(*planes[0],
                                                             *consts)),
@@ -305,12 +331,12 @@ def check_route(dev, P: int, Q: int, N: int, chan_len: int, rng,
               + 12 * N + 4 * rs.ker_np.size)
     flops = 4 * N * (n_out // P) * nnz + 6 * N * chan_len
     cold, k = cold_ms(make, nbytes)
-    tb, groups, cq, keep_e, smem = route_plan(
+    tb, groups, cq, keep_e, smem, stream = route_plan(
         P, Q, O, rs.KK, route_taps(rs.ker_np, Q)[0].shape[-1])
     return {"P": P, "Q": Q, "N": N, "M": M, "chan_len": chan_len, "O": O,
             "plan": {"tiles_per_batch": tb, "residue_groups": groups,
                      "residues_per_pass": cq, "e_resident": keep_e,
-                     "smem_bytes": smem},
+                     "window_streamed": stream, "smem_bytes": smem},
             "max_abs_err": err, "warm_ms": cuda_ms(make(0)), "cold_ms": cold,
             "cold_sets": k, "plain_ms": cuda_ms(plain),
             **roofline(flops, nbytes, cold)}
@@ -1123,6 +1149,178 @@ def check_serve(sess: Path, cap: Path, plan, card: str = "cuda"):
     return total, summary
 
 
+# Stage shapes that no resident shared-memory plan fits (the route
+# kernel's streaming plan): P, Q, N, channel length and channel count of
+# the pipeline that fuses them. NBFM 5 kHz at 1.024 MS/s (3/307, O=384),
+# NBFM 1.5 and 3 kHz at 1.4 MS/s (1/467, 2/467), NBFM 500 Hz at 2.56 MS/s
+# (2/3413, whose window is 477,819 samples) and the 12 digital modems at
+# 12.5 kHz on a 30.72 MS/s capture (4/317, O=512).
+STREAMING_ROUTES = ((3, 307, 16, 196_480, 4), (1, 467, 16, 59_776, 4),
+                    (2, 467, 16, 59_776, 4), (2, 3413, 16, 436_864, 6),
+                    (4, 317, 16, 40_576, 62))
+# Channel counts above 133 (captures above 66 MS/s): the PFB kernel's
+# single-staged plan with F tiled over output channels, over 4,096,000
+# samples each (70 MS/s -> M=140, 122.88 MS/s -> M=246).
+WIDE_PFBS = ((140, 4_096_000 // 70, 0), (246, 4_096_000 // 123, 1))
+
+
+def check_cli_wide(tmp: Path, card: str = "cuda"):
+    """Phase 17: ``demod`` on the card at the new kernel shapes against
+    ``--device cpu``: NBFM 5 kHz on a 1.024 MS/s capture (the route
+    kernel's streaming plan, 3/307) and FM on a 70 MS/s capture (M=140:
+    the PFB kernel's tiled plan); each WAV at the audio gates, a tone
+    above 30 dB (NBFM) and 40 dB (FM), one PFB and one route launch per
+    block. The NBFM station deviates 600 Hz at an 800 Hz tone, so its
+    FM sidebands fit the 5 kHz channel."""
+    from cubicsdr_tpu_torch.io.wav import read_wav
+    from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+    from cubicsdr_tpu_torch.utils.synth import Station, synth_capture
+    cases = (  # name, rate, modem, bandwidth, station, tone floor dB,
+        #          blocks (about 0.1 s of audio or more for the tone)
+        ("demod_nbfm_1024k", 1_024_000, "NBFM", 5000,
+         Station("nbfm", 128e3 + 20e3, 800.0, deviation=600.0), 30.0, 3),
+        ("demod_fm_70m", 70_000_000, "FM", 200000,
+         Station("fm", 3 * 500e3 + 20e3, 700.0), 40.0, 8))
+    rows = {}
+    for name, fs, modem, bw, st, floor, n_blocks in cases:
+        rx = ReceiverPipeline(fs, [DemodGroupSpec(modem, bw, 1)],
+                              device="cpu")
+        if rx.fused_route != [True]:
+            raise AssertionError(f"{name} does not fuse")
+        cap = tmp / f"{name}.cf32"
+        write_cf32(cap, synth_capture([st], n_blocks * rx.block_len, fs,
+                                      card, seed=3))
+        argv = ["demod", cap, "-r", fs, "-c", int(CENTER), "-f",
+                int(CENTER + st.frequency), "-m", modem, "-b", bw]
+        outs = {}
+        for side, dev in (("card", card), ("cpu", "cpu")):
+            out = tmp / f"{name}_{side}.wav"
+            launches, secs = cli_run([*argv, "-o", out, "--device", dev])
+            outs[side] = (out, launches, secs)
+        (out, launches, secs), (out_c, _, _) = outs["card"], outs["cpu"]
+        if launches != {"pfbch2_planar": n_blocks,
+                        "routed_shifted_resample": n_blocks}:
+            raise AssertionError(f"cli {name} launches {launches}")
+        a, ra = read_wav(str(out))
+        b, rb = read_wav(str(out_c))
+        if ra != rb or not np.isfinite(a).all():
+            raise AssertionError(f"cli {name}: bad WAV")
+        row = {"launches": launches, "card_s": secs, "M": rx.M,
+               "block_len": rx.block_len,
+               **audio_close(a, b, f"cli {name} WAV")}
+        snr = tone_snr(a[0, a.shape[1] // 3:], st.tone, ra)
+        if not snr > floor:
+            raise AssertionError(f"cli {name} tone SNR {snr:.1f}")
+        row["tone_snr_db"] = snr
+        rows[name] = row
+    return rows
+
+
+def check_sharded(smi: str):
+    """Phase 18: ShardedReceiver on a 1x1 mesh under NCCL, built with its
+    defaults (the card, both kernels), on scan58's plan over 3 blocks,
+    against the unsharded ReceiverPipeline on the card at the pipeline's
+    gates (symbols by the CPU slicer's margin); exactly 1 PFB and 6 route
+    launches per block; the sharded and unsharded steps' MS/s."""
+    import torch.distributed as dist
+    from cubicsdr_tpu_torch.ops.planar import PC
+    from cubicsdr_tpu_torch.parallel.mesh import make_receiver_mesh
+    from cubicsdr_tpu_torch.parallel.multihost import free_port
+    from cubicsdr_tpu_torch.parallel.sharded import ShardedReceiver
+    from cubicsdr_tpu_torch.utils.synth import scan58
+    from cubicsdr_tpu_torch.utils.tree import tree_map
+    plan = scan58()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        srx = ShardedReceiver(plan.fs, plan.num_channels, list(plan.specs),
+                              mesh=make_receiver_mesh(1, 1, "cuda"))
+        if srx.device.type != "cuda" or srx.fused_route != [True] * 6:
+            raise AssertionError(f"sharded scan58 on {srx.device}, fused "
+                                 f"{srx.fused_route}")
+        rx, rx_cpu = plan.pipeline(), plan.pipeline(device="cpu")
+        if srx.block_len != rx.block_len:
+            raise AssertionError(f"block {srx.block_len} vs {rx.block_len}")
+        blocks = plan_blocks(plan, 3, rx.block_len, seed=11)
+        ref, befores = run_blocks(rx, blocks, plan.controls(rx))
+        controls = srx.place_controls(plan.controls(srx))
+        st, outs = srx.init_state(), []
+        reset_launches()
+        for blk in blocks:
+            st, o = srx.step(st, PC(blk[0], blk[1]), controls)
+            outs.append(o)
+        launches = read_launches()
+        if launches != {"pfbch2_planar": 3, "routed_shifted_resample": 18}:
+            raise AssertionError(f"sharded scan58 launches {launches}, "
+                                 f"expected 3 PFB and 18 route")
+        worst = {}
+        to_cpu = (lambda tree: tree_map(
+            lambda t: t.cpu() if torch.is_tensor(t) else t, tree))
+        compare_groups(rx_cpu, outs, [to_cpu(o) for o in ref],
+                       [to_cpu(b) for b in befores], worst)
+
+        def sharded_rate(n_blocks=10, n_warm=3):
+            s = srx.init_state()
+            pcs = [PC(b[0], b[1]) for b in blocks]
+            for b in range(n_warm):
+                s, o = srx.step(s, pcs[b % 3], controls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in range(n_blocks):
+                s, o = srx.step(s, pcs[b % 3], controls)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            return n_blocks * srx.block_len / dt / 1e6, dt / n_blocks * 1e3
+
+        rates = {}
+        for turn in ("unsharded", "sharded", "sharded", "unsharded"):
+            r = (timed_steps(rx, blocks, plan.controls(rx), 10)
+                 if turn == "unsharded" else sharded_rate())
+            rates.setdefault(turn, []).append(r)
+        row = {"row": "sharded1x1_scan58", "backend": dist.get_backend(),
+               "block_len": srx.block_len, "card": smi,
+               **{f"{k}_msamples_per_s": [r[0] for r in v]
+                  for k, v in rates.items()},
+               **{f"{k}_ms_per_block": [r[1] for r in v]
+                  for k, v in rates.items()}}
+    finally:
+        dist.destroy_process_group()
+    return launches, worst, row
+
+
+def check_multihost(smi: str):
+    """Phase 19: ``multihost`` as a user launches it, two worker processes
+    on the one card (time=2): NCCL takes one rank per GPU, so the phase
+    asks for host collectives, gloo on host copies (the stand-in for a
+    link between hosts); scan58's plan, each rank verified against the
+    unsharded ReceiverPipeline it computes on the card; then a timed
+    phase, bound by those host copies."""
+    from cubicsdr_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    reports = multihost.launch_local(2, steps=2, device="cuda",
+                                     plan="scan58", timed_steps=4,
+                                     timeout_s=600, host_collectives=True)
+    wall = time.perf_counter() - t0
+    for rep in reports:
+        if not (rep["ok"] and rep["verified"] and rep["process_count"] == 2
+                and rep["host_collectives"] and rep["backend"] == "gloo"):
+            raise AssertionError(f"multihost report {rep}")
+        if rep["launches"] != {"pfbch2_planar": 2,
+                               "routed_shifted_resample": 12}:
+            raise AssertionError(f"multihost rank launches "
+                                 f"{rep['launches']}")
+    return reports, {"row": "multihost2_scan58_one_card",
+                     "collectives": "gloo on host copies (2 ranks, 1 GPU)",
+                     "block_len": reports[0]["block_len"],
+                     "aggregate_msamples_per_s": [
+                         r["timed"]["aggregate_msps"] for r in reports],
+                     "timed_steps": reports[0]["timed"]["steps"],
+                     "wall_s_with_start_up": wall,
+                     "note": "host-copy bound: every halo, sum and "
+                             "gather leaves the card for gloo",
+                     "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1181,6 +1379,20 @@ def main() -> int:
     for P, Q, N, M in ((1, 25, 4, 16), (1, 2, 2, 16), (5, 8, 2, 6)):
         route_line(check_route(dev, P, Q, N, 128_000, rng, M=M),
                    route_cases, smi, "pfbch ")
+    # Phase 15: the route kernel's streaming plan at the stage shapes no
+    # resident plan fits; phase 16: the PFB kernel at M >= 134.
+    for P, Q, N, chan_len, M in STREAMING_ROUTES:
+        route_line(check_route(dev, P, Q, N, chan_len, rng, M=M),
+                   route_cases, smi, "streaming ")
+    for M, n_steps, parity in WIDE_PFBS:
+        c = check_pfb(dev, M, n_steps, parity, rng)
+        pfb_cases.append(c)
+        line(f"pfb M={M} steps={n_steps} parity={parity} ({c['form']}, "
+             f"T={c['steps_per_tile']}, F rows per fold "
+             f"{c['f_rows_per_fold']}): max_abs_err {c['max_abs_err']:.3g}; "
+             f"cold {c['cold_ms']:.4f} ms, warm {c['warm_ms']:.4f} ms, plain "
+             f"{c['plain_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms "
+             f"({c['bound_by']}), share {c['roofline_share']:.3f} [{smi}]")
 
     launches, worst = check_main_path(dev)
     line(f"main path demod16 x3 blocks: launches {launches}, vs CPU "
@@ -1242,6 +1454,21 @@ def main() -> int:
                          "block_ms": [r["post_to_first_block_ms"]
                                       for r in serve["rebuilds"]],
                          "card": smi}))
+        wide_rows = check_cli_wide(Path(tmp))
+        for name, r in wide_rows.items():
+            line(f"cli {name} on the card vs --device cpu: {json.dumps(r)} "
+                 f"[{smi}]")
+
+    sharded_launches, sharded, sharded_row = check_sharded(smi)
+    line(f"sharded 1x1 (NCCL) scan58 x3 blocks: launches {sharded_launches}"
+         f", vs the unsharded card pipeline {json.dumps(sharded)} [{smi}]")
+    line(json.dumps(sharded_row))
+    mh_reports, mh_row = check_multihost(smi)
+    line(f"multihost 2 processes on cuda:0 (time=2, gloo on host copies), "
+         f"scan58: both ranks verified against the unsharded pipeline, "
+         f"launches per rank {[r['launches'] for r in mh_reports]}, worst "
+         f"{json.dumps([r['worst'] for r in mh_reports])} [{smi}]")
+    line(json.dumps(mh_row))
 
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
@@ -1254,7 +1481,12 @@ def main() -> int:
                     "live16": live_launches[name],
                     **{f"cli_{k}": r["launches"][name]
                        for k, r in cli_rows.items()},
-                    "serve_after_rebuilds": serve_launches[name]},
+                    "serve_after_rebuilds": serve_launches[name],
+                    **{f"cli_{k}": r["launches"][name]
+                       for k, r in wide_rows.items()},
+                    "sharded_1x1_scan58": sharded_launches[name],
+                    "multihost_rank0_scan58":
+                        mh_reports[0]["launches"][name]},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

@@ -51,3 +51,30 @@ def load_state(path: str, like_state):
                     f"shape {tuple(ref.shape)} — plan changed?")
             flat.append(torch.as_tensor(arr, device=ref.device))
     return tree_unflatten(like_state, flat), meta
+
+
+def save_sharded_state(path: str, rx, state, meta: dict | None = None):
+    """Checkpoint a ``ShardedReceiver``'s state: every rank's shard is
+    gathered (a collective: every rank calls this) into the JAX package's
+    global layout (leaves [nt, ...], demod rows in global order), and rank
+    0 writes it, so the file loads into either package's sharded
+    receiver on the same mesh shape."""
+    import torch.distributed as dist
+    glob = rx.gather_state(state)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        save_state(path, glob, meta)
+    if dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def load_sharded_state(path: str, rx):
+    """This rank's shard of a checkpoint written by ``save_sharded_state``
+    (or by the JAX package's ``rx --mesh``). Returns (state, meta);
+    raises ValueError when the plan or the mesh shape changed."""
+    like = rx.init_state()
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode()) \
+            if "__meta__" in z else {}
+        leaves = [z[f"leaf_{i}"] for i in range(len(tree_leaves(like)))]
+    return rx.place_state(tree_unflatten(like, leaves)), meta

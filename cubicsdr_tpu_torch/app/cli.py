@@ -1,7 +1,7 @@
 """Command-line shell — the headless CubicSDR application on the port
 (``cubicsdr_tpu/app/cli.py``).
 
-    python -m cubicsdr_tpu_torch {demod,waterfall,rx,serve,modems} ...
+    python -m cubicsdr_tpu_torch {demod,waterfall,rx,serve,multihost,modems}
 
 Replaces the wxApp shell (ref: src/CubicSDR.cpp OnInit/OnExit + cmdline
 flags CubicSDR.h:259-268) with subcommands:
@@ -10,15 +10,20 @@ flags CubicSDR.h:259-268) with subcommands:
   rx         session file -> every demodulator -> stereo mix WAV
   waterfall  IQ capture -> spectrum/waterfall PNG
   serve      live receiver + web UI
+  multihost  distributed receive: N processes, each feeding its own span
   modems     list registered modem types + settings schemas
 
 The subcommands that run the receiver take ``--device`` (default
 ``cuda``): they run on the card with both CUDA kernels, and fail where
 the host has no CUDA device unless ``--device cpu`` is given (the
 kernels' plain versions then run on the host). The arguments and output
-files are the JAX package's; its sharded ``rx --mesh`` (with the options
-only that mode reads: ``--fft-size``, ``--checkpoint``, ``--record``), the
-``multihost`` launcher and ``bench`` are not part of the port yet.
+files are the JAX package's. ``rx --mesh "time=T,chan=C"`` runs the
+sharded receiver on T*C local ranks, one process each: one card per rank
+with NCCL, or CPU ranks with gloo under ``--device cpu``; with it come
+the options only that mode reads (``--fft-size``, ``--checkpoint``,
+``--record``). ``multihost`` takes ``--devices`` as the device kind
+(``cuda`` or ``cpu``), since each process holds one device. ``bench`` is
+not part of the port yet.
 
 Frequency strings accept the reference's forms ("100.1", "100.1M",
 "98700k", raw Hz; ref: CubicSDR.cpp:80-141 frequency parsing).
@@ -166,6 +171,8 @@ def cmd_rx(args):
         print(f"cannot load session {args.session}", file=sys.stderr)
         return 1
     specs, keyed = plan_from_manager(mgr)
+    if args.mesh:
+        return _rx_sharded(args)
     rx = ReceiverPipeline(sess.sample_rate, specs,
                           chan_mode=args.channelizer, device=args.device)
     controls = _device_controls(
@@ -188,6 +195,144 @@ def cmd_rx(args):
         player.close()
     print(f"wrote {mix_w.current_path} "
           f"({len(mgr.get_demodulators())} demods mixed)")
+
+
+def _parse_mesh(spec: str) -> tuple[int, int]:
+    kv = dict(p.split("=") for p in spec.split(","))
+    return int(kv.get("time", 1)), int(kv.get("chan", 1))
+
+
+def _rx_sharded(args):
+    """Session rx on a mesh of local ranks: ShardedReceiver end to end
+    (halo'd channelizer, chan-split demod rows, the mix summed into the
+    WAV, the gathered spectrum into the waterfall PNG, per-demod recording
+    taps, and a bit-continuous checkpoint of the sharded state)."""
+    import torch
+    from cubicsdr_tpu_torch.parallel.multihost import spawn_ranks
+    nt, nc = _parse_mesh(args.mesh)
+    if args.device == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if nt * nc > have:
+            print(f"mesh {nt}x{nc} needs {nt * nc} CUDA devices (one per "
+                  f"rank), have {have}", file=sys.stderr)
+            return 1
+    opts = {k: v for k, v in vars(args).items() if k != "fn"}
+    spawn_ranks(_rx_rank, nt * nc, args=(opts,), device=args.device)
+    return 0
+
+
+def _rx_rank(rank: int, opts: dict) -> None:
+    """One rank of ``rx --mesh``; rank 0 writes the files."""
+    import os
+    import torch
+    from cubicsdr_tpu_torch.app.checkpoint import (
+        load_sharded_state, save_sharded_state)
+    from cubicsdr_tpu_torch.app.session import SessionMgr
+    from cubicsdr_tpu_torch.io import FileIQSource, WavWriter
+    from cubicsdr_tpu_torch.io.recorder import RecordingSink
+    from cubicsdr_tpu_torch.io.sources import optimal_channel_count
+    from cubicsdr_tpu_torch.parallel.mesh import make_receiver_mesh
+    from cubicsdr_tpu_torch.parallel.sharded import ShardedReceiver
+    from cubicsdr_tpu_torch.receiver import (
+        DemodulatorMgr, controls_from_manager, plan_from_manager)
+    from cubicsdr_tpu_torch.visual import SpectrumProcessor, Waterfall
+    from cubicsdr_tpu_torch.visual.spectrum import mags_to_display
+
+    mgr = DemodulatorMgr()
+    sess = SessionMgr(mgr)
+    if not sess.load_session(opts["session"]):
+        raise RuntimeError(f"cannot load session {opts['session']}")
+    specs, keyed = plan_from_manager(mgr)
+    nt, nc = _parse_mesh(opts["mesh"])
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if opts["device"] == "cuda" else torch.device(opts["device"]))
+    mesh = make_receiver_mesh(nt, nc, device_type=dev.type)
+    fft = opts["fft_size"]
+    rx = ShardedReceiver(sess.sample_rate,
+                         optimal_channel_count(sess.sample_rate), specs,
+                         mesh=mesh, spectrum_fft=fft, device=dev)
+    controls = rx.place_controls(
+        controls_from_manager(mgr, rx, keyed, sess.center_freq))
+    ck = opts["checkpoint"]
+    state = rx.init_state()
+    lead = rank == 0
+    if ck and os.path.exists(ck):
+        state, meta = load_sharded_state(ck, rx)
+        if lead:
+            print(f"resumed from {ck} (block {meta.get('blocks', '?')})")
+    src = FileIQSource(opts["input"], sess.sample_rate, rx.block_len)
+    if lead:
+        mix_w = WavWriter(opts["output"], rx.audio_rate, 2)
+        core = SpectrumProcessor(fft)
+        st_sp = core.init_state()
+        wf = Waterfall(fft, max(32, src.n_samples // rx.block_len * nt))
+        recorders: dict[int, RecordingSink] = {}
+    n_blocks = 0
+    for blk in src:
+        state, out = rx.step(state, rx.shard_iq(blk), controls)
+        out = rx.gather_outputs(out)
+        n_blocks += 1
+        if not lead:
+            continue
+        mix_w.write(out["mix"])
+        st_sp, pts = mags_to_display(core, st_sp, out["spectrum_mags"])
+        wf.add_lines(np.tile(pts, (nt, 1)))
+        if opts["record"]:
+            flat = 0
+            for g in out["groups"]:
+                rows = g["level"].shape[0]
+                for ri in range(rows if "audio" in g else 0):
+                    key = flat + ri
+                    if key not in recorders:
+                        recorders[key] = RecordingSink(
+                            f"{opts['record']}_demod{key}", rx.audio_rate,
+                            channels=g["audio"].shape[1])
+                    recorders[key].write(g["audio"][ri],
+                                         bool(g["squelched"][ri]))
+                flat += rows
+    if ck:
+        save_sharded_state(ck, rx, state, meta={"blocks": n_blocks})
+    if not lead:
+        return
+    mix_w.close()
+    for r in recorders.values():
+        r.close()
+    png = opts["output"].rsplit(".", 1)[0] + "_waterfall.png"
+    with open(png, "wb") as f:
+        f.write(wf.render_png_bytes())
+    print(f"sharded rx on {nt}x{nc} mesh: {n_blocks} blocks -> "
+          f"{mix_w.current_path}, {png}"
+          + (f", checkpoint {ck}" if ck else ""), flush=True)
+
+
+def cmd_multihost(args):
+    """Distributed multi-process receive. Launcher mode (default): spawn N
+    local worker processes over loopback and collect their reports.
+    Worker mode (--worker): join the job as one process; on several hosts
+    run one worker per host with --coordinator pointing at host 0."""
+    import json
+    from cubicsdr_tpu_torch.parallel import multihost
+    if args.worker:
+        rep = multihost.run_worker(args.coordinator, args.nprocs,
+                                   args.process_id, steps=args.steps,
+                                   verify=not args.no_verify,
+                                   timed_steps=args.timed_steps,
+                                   device=args.devices, plan=args.plan,
+                                   host_collectives=args.host_collectives)
+        print(json.dumps(rep), flush=True)
+        return 0
+    reports = multihost.launch_local(args.nprocs, steps=args.steps,
+                                     timed_steps=args.timed_steps,
+                                     device=args.devices, plan=args.plan,
+                                     verify=not args.no_verify,
+                                     host_collectives=args.host_collectives)
+    for rep in reports:
+        print(json.dumps(rep))
+    ok = all(r["ok"] and r["process_count"] == args.nprocs
+             for r in reports)
+    print(f"multihost: {args.nprocs} processes on {args.devices}, "
+          f"{'verified' if ok else 'FAILED'}")
+    return 0 if ok else 1
 
 
 def cmd_serve(args):
@@ -338,7 +483,8 @@ def _device_arg(p):
 
 def build_parser() -> argparse.ArgumentParser:
     """The CLI's parser: the JAX package's subcommands and arguments
-    (less the sharded and multi-host ones), with ``--device``."""
+    (less ``bench``), with ``--device``; ``multihost --devices`` is the
+    device kind."""
     ap = argparse.ArgumentParser(
         prog="cubicsdr_tpu_torch",
         description="Software radio (CubicSDR capability set) on PyTorch "
@@ -382,6 +528,18 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--play", nargs="?", const="auto", default=None,
                    help="also play the mix to a host audio backend "
                         "(auto|sounddevice|wav:<path>|null)")
+    r.add_argument("--mesh", default=None,
+                   help='run on a mesh of local ranks, e.g. "time=4,chan=2" '
+                        "(sharded receiver: halo channelizer, summed mix, "
+                        "gathered spectrum waterfall)")
+    r.add_argument("--fft-size", type=int, default=512,
+                   help="waterfall FFT size (sharded mode)")
+    r.add_argument("--checkpoint", default=None,
+                   help="state snapshot path: resumed if present, saved "
+                        "at end (bit-continuous, sharded mode)")
+    r.add_argument("--record", default=None,
+                   help="base path for per-demod recording WAVs "
+                        "(sharded mode)")
     _device_arg(r)
     r.set_defaults(fn=cmd_rx)
 
@@ -414,6 +572,28 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["pfbch", "pfbch2", "single"])
     _device_arg(s)
     s.set_defaults(fn=cmd_serve)
+
+    mh = sub.add_parser("multihost",
+                        help="distributed multi-process receive")
+    mh.add_argument("--nprocs", type=int, default=2)
+    mh.add_argument("--steps", type=int, default=2)
+    mh.add_argument("--devices", default="cuda", choices=["cuda", "cpu"],
+                    help="device kind of each process (one device each)")
+    mh.add_argument("--worker", action="store_true")
+    mh.add_argument("--coordinator", default="localhost:9876")
+    mh.add_argument("--process-id", type=int, default=0)
+    mh.add_argument("--no-verify", action="store_true")
+    mh.add_argument("--timed-steps", type=int, default=0,
+                    help="append a steady-state timing phase of N steps "
+                         "(reports aggregate MS/s)")
+    mh.add_argument("--host-collectives", action="store_true",
+                    help="run the collectives through gloo on host copies "
+                         "of the card's tensors, so that processes may "
+                         "share a card")
+    mh.add_argument("--plan", default="demo", choices=["demo", "scan58"],
+                    help="the job's plan: a 1 MS/s FM + BPSK demo, or "
+                         "scan58 (8 MS/s, 58 demods in six groups)")
+    mh.set_defaults(fn=cmd_multihost)
 
     m = sub.add_parser("modems", help="list modem types")
     m.set_defaults(fn=cmd_modems)

@@ -47,8 +47,16 @@
 //     * every other M (18, 20, 40, ...; runtime M): a register-tiled
 //       complex product with F[k][rho] = c_k W[k][rho], folded once per
 //       block from the channelizer's (w, c) into shared memory. A warp
-//       owns 4 outputs, each lane 4 steps (lane + 32 i): per branch 4
-//       branch-sum loads and 4 broadcast F loads feed 16 complex MACs.
+//       owns 4 outputs, each lane 2 steps (lane + 32 i): per branch 2
+//       branch-sum loads and 4 broadcast F loads feed 8 complex MACs.
+// - Large M (134-400: captures above 66 MS/s), where F (2 M^2 floats)
+//   and a double-buffered window no longer fit one block: the window is
+//   single-buffered (the next tile's loads are issued once the FIR has
+//   read it, so they overlap the transform), and the transform is tiled
+//   over blocks of KB output channels: each block folds its [KB][M] slice
+//   of F from (w, c), which L2 holds, and then runs the product on it
+//   (`pfb_plan` picks T, the stages and KB; the fold is 1/T of the
+//   product's work). The summation order per output is unchanged.
 // - The parity flip is applied at the store; each channel row is written
 //   by consecutive threads on consecutive steps (coalesced).
 
@@ -66,6 +74,7 @@ constexpr int kMaxConsts = 2 * kMaxDft * kMaxDft;
 constexpr int kQT = 4;          // outputs per warp item (product form)
 constexpr int kST = 2;          // steps per lane (product form)
 constexpr size_t kSmemMax = 232448;
+constexpr int kMaxDevices = 64;
 
 struct PfbConsts {
   float v[kMaxConsts];
@@ -190,6 +199,8 @@ struct Geo {
   int M, J, D, T;
   int win;        // floats per plane of a staged window
   int n_steps, n_tiles;
+  int stages;     // staged windows: 2 (ring) or 1 (reloaded after the FIR)
+  int KB;         // rows of F held at once (product form; M: folded once)
 };
 
 // Stage tile `tile`'s window of both planes into win_re/win_im.
@@ -229,27 +240,32 @@ pfbch2_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
   const int T = g.T;
   const int U1 = M + 1;
   extern __shared__ __align__(16) float smem[];
-  float* win = smem;                                   // [2][re, im][win]
-  float2* u = reinterpret_cast<float2*>(smem + 4 * g.win);   // [T][M+1]
-  float2* F = u + T * U1;                              // [M][M], product form
-  float* sh = reinterpret_cast<float*>(F + (M_ > 0 ? 0 : M * M));  // [M][J]
+  float* win = smem;                          // [stages][re, im][win]
+  float2* u = reinterpret_cast<float2*>(smem + 2 * g.stages * g.win);
+  float2* F = u + T * U1;                     // [KB][M], product form
+  float* sh = reinterpret_cast<float*>(F + (M_ > 0 ? 0 : g.KB * M));  // [M][J]
 
   int tile = blockIdx.x;
   if (tile >= g.n_tiles) return;
   stage_window(z_re, z_im, g, tile, win, win + g.win);
   for (int i = threadIdx.x; i < M * J; i += blockDim.x) sh[i] = h[i];
-  if constexpr (M_ == 0) {
-    for (int i = threadIdx.x; i < M * M; i += blockDim.x) {
-      const float cr = c_re[i / M], ci = c_im[i / M];
-      const float wr = w_re[i], wi = w_im[i];
+  // F rows [k0, k0 + nk) into F[0 .. nk).
+  auto fold = [&](int k0, int nk) {
+    for (int i = threadIdx.x; i < nk * M; i += blockDim.x) {
+      const int q = k0 + i / M;
+      const float cr = c_re[q], ci = c_im[q];
+      const float wr = w_re[k0 * M + i], wi = w_im[k0 * M + i];
       F[i] = make_float2(cr * wr - ci * wi, cr * wi + ci * wr);
     }
+  };
+  if constexpr (M_ == 0) {
+    if (g.KB == M) fold(0, M);
   }
   const int par = *parity;
 
   for (int it = 0;; ++it) {
     const int next = tile + gridDim.x;
-    if (next < g.n_tiles) {
+    if (g.stages == 2 && next < g.n_tiles) {
       float* w = win + ((it + 1) & 1) * 2 * g.win;
       stage_window(z_re, z_im, g, next, w, w + g.win);
       cp_async_wait<1>();
@@ -257,7 +273,7 @@ pfbch2_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* xr = win + (it & 1) * 2 * g.win;
+    const float* xr = win + (g.stages == 2 ? (it & 1) : 0) * 2 * g.win;
     const float* xi = xr + g.win;
 
     // FIR: item = (rho, 8 steps), rho fastest.
@@ -304,6 +320,10 @@ pfbch2_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
         u[(s0 + t) * U1 + rho] = make_float2(ar[t], ai[t]);
     }
     __syncthreads();
+    // One stage: the FIR has read the window, so the next tile's loads go
+    // out now and overlap the transform.
+    if (g.stages == 1 && next < g.n_tiles)
+      stage_window(z_re, z_im, g, next, win, win + g.win);
 
     if constexpr (M_ > 0) {
       // Transform in registers, c_k and the parity flip: one step per
@@ -334,50 +354,59 @@ pfbch2_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
       // Product form: warp item = kQT outputs x (32 * kST) steps; lane
       // owns steps lane + 32 i.
       const int lane = threadIdx.x & 31;
-      const int n_q = (M + kQT - 1) / kQT;
       const int n_sg = (T + 32 * kST - 1) / (32 * kST);
-      for (int item = threadIdx.x / 32; item < n_q * n_sg;
-           item += blockDim.x / 32) {
-        const int q0 = (item % n_q) * kQT;
-        const int t0 = (item / n_q) * 32 * kST + lane;
-        float2 acc[kST][kQT];
-#pragma unroll
-        for (int i = 0; i < kST; ++i)
-#pragma unroll
-          for (int j = 0; j < kQT; ++j) acc[i][j] = make_float2(0.f, 0.f);
-        for (int rho = 0; rho < M; ++rho) {
-          float2 uv[kST], f[kQT];
-#pragma unroll
-          for (int i = 0; i < kST; ++i) {
-            const int t = t0 + 32 * i;
-            uv[i] = t < T ? u[t * U1 + rho] : make_float2(0.f, 0.f);
-          }
-#pragma unroll
-          for (int j = 0; j < kQT; ++j)
-            f[j] = F[min(q0 + j, M - 1) * M + rho];
+      for (int k0 = 0; k0 < M; k0 += g.KB) {
+        const int nk = min(g.KB, M - k0);
+        if (g.KB < M) {        // this block of F: after the last one is read
+          __syncthreads();
+          fold(k0, nk);
+          __syncthreads();
+        }
+        const int n_q = (nk + kQT - 1) / kQT;
+        for (int item = threadIdx.x / 32; item < n_q * n_sg;
+             item += blockDim.x / 32) {
+          const int q0 = k0 + (item % n_q) * kQT;
+          const int t0 = (item / n_q) * 32 * kST + lane;
+          float2 acc[kST][kQT];
 #pragma unroll
           for (int i = 0; i < kST; ++i)
 #pragma unroll
-            for (int j = 0; j < kQT; ++j) {
-              acc[i][j].x = fmaf(f[j].x, uv[i].x, acc[i][j].x);
-              acc[i][j].x = fmaf(-f[j].y, uv[i].y, acc[i][j].x);
-              acc[i][j].y = fmaf(f[j].x, uv[i].y, acc[i][j].y);
-              acc[i][j].y = fmaf(f[j].y, uv[i].x, acc[i][j].y);
+            for (int j = 0; j < kQT; ++j) acc[i][j] = make_float2(0.f, 0.f);
+          for (int rho = 0; rho < M; ++rho) {
+            float2 uv[kST], f[kQT];
+#pragma unroll
+            for (int i = 0; i < kST; ++i) {
+              const int t = t0 + 32 * i;
+              uv[i] = t < T ? u[t * U1 + rho] : make_float2(0.f, 0.f);
             }
-        }
 #pragma unroll
-        for (int i = 0; i < kST; ++i) {
-          const int t = t0 + 32 * i;
-          const int s = tile * T + t;
-          if (t >= T || s >= g.n_steps) continue;
-          const bool odd = (s + par) & 1;
+            for (int j = 0; j < kQT; ++j)
+              f[j] = F[(min(q0 + j, k0 + nk - 1) - k0) * M + rho];
 #pragma unroll
-          for (int j = 0; j < kQT; ++j) {
-            const int q = q0 + j;
-            if (q >= M) continue;
-            const bool neg = (q & 1) && odd;
-            out_re[(long)q * g.n_steps + s] = neg ? -acc[i][j].x : acc[i][j].x;
-            out_im[(long)q * g.n_steps + s] = neg ? -acc[i][j].y : acc[i][j].y;
+            for (int i = 0; i < kST; ++i)
+#pragma unroll
+              for (int j = 0; j < kQT; ++j) {
+                acc[i][j].x = fmaf(f[j].x, uv[i].x, acc[i][j].x);
+                acc[i][j].x = fmaf(-f[j].y, uv[i].y, acc[i][j].x);
+                acc[i][j].y = fmaf(f[j].x, uv[i].y, acc[i][j].y);
+                acc[i][j].y = fmaf(f[j].y, uv[i].x, acc[i][j].y);
+              }
+          }
+#pragma unroll
+          for (int i = 0; i < kST; ++i) {
+            const int t = t0 + 32 * i;
+            const int s = tile * T + t;
+            if (t >= T || s >= g.n_steps) continue;
+            const bool odd = (s + par) & 1;
+#pragma unroll
+            for (int j = 0; j < kQT; ++j) {
+              const int q = q0 + j;
+              if (q >= k0 + nk) continue;
+              const bool neg = (q & 1) && odd;
+              const float2 v = acc[i][j];
+              out_re[(long)q * g.n_steps + s] = neg ? -v.x : v.x;
+              out_im[(long)q * g.n_steps + s] = neg ? -v.y : v.y;
+            }
           }
         }
       }
@@ -394,20 +423,23 @@ int launch(const float* z_re, const float* z_im, const float* h,
            float* out_im, const Geo& g, const PfbConsts& k,
            cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * (4 * (size_t)g.win + 2 * (size_t)g.T * (g.M + 1)
-                       + (M_ > 0 ? 0 : 2 * (size_t)g.M * g.M)
+      sizeof(float) * (2 * (size_t)g.stages * g.win
+                       + 2 * (size_t)g.T * (g.M + 1)
+                       + (M_ > 0 ? 0 : 2 * (size_t)g.KB * g.M)
                        + (size_t)g.M * g.J);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
+  // The attribute is per device: set it once on each device launched on.
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         pfbch2_kernel<M_, J_>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kSmemMax);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev] = true;
   }
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pfbch2_kernel<M_, J_>,
                                                 kThreads, smem);
@@ -421,7 +453,9 @@ int launch(const float* z_re, const float* z_im, const float* h,
 
 }  // namespace
 
-// Launch on `stream` with T steps per tile (`pfb_plan`). `consts` (host
+// Launch on `stream` with T steps per tile, `stages` staged windows (2 or
+// 1) and KB rows of F per fold (product form; 1 <= KB <= M), as
+// `pfb_plan` gives them. `consts` (host
 // memory, `n_consts` floats) is the register form's folded table
 // (`pfb_transform_consts`): required where that form runs (J = 8 and
 // power-of-two M <= 64 or even M <= 16), ignored otherwise. Returns a
@@ -431,8 +465,9 @@ extern "C" int pfbch2_planar_launch(
     const float* w_re, const float* w_im, const float* c_re,
     const float* c_im, const float* consts, int n_consts,
     const int* parity, float* out_re, float* out_im, int M, int J,
-    int n_steps, int T, void* stream) {
-  if (M < 2 || M % 2 || J < 1 || T < 32 || T % 32 || T > 128)
+    int n_steps, int T, int stages, int KB, void* stream) {
+  if (M < 2 || M % 2 || J < 1 || T < 32 || T % 32 || T > 128
+      || (stages != 1 && stages != 2) || KB < 1 || KB > M)
     return (int)cudaErrorInvalidValue;
   Geo g;
   g.z_len = z_len;
@@ -443,6 +478,8 @@ extern "C" int pfbch2_planar_launch(
   g.win = ((T + 2 * J - 1) * g.D + 3) / 4 * 4;
   g.n_steps = n_steps;
   g.n_tiles = (n_steps + T - 1) / T;
+  g.stages = stages;
+  g.KB = KB;
   PfbConsts k;
   memset(&k, 0, sizeof(k));
   cudaStream_t s = (cudaStream_t)stream;

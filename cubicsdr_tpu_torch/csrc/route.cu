@@ -62,6 +62,14 @@
 //   The residues are walked in passes of CQ rows, each modulated by all
 //   groups, then filtered; where even E does not fit, each pass computes
 //   E as the table would.
+// - Streaming plan, where not even one tile's window fits (Q = 307-3413:
+//   NBFM at the RTL-SDR's 1.024, 1.4 and 2.56 MS/s, the digital modems
+//   at 30.72 MS/s; W up to 477,819 samples per plane). One tile per
+//   batch; nothing of the window is staged: each pass reads the samples
+//   of its CQ residues straight from global memory into the decimated
+//   rows (consecutive threads on consecutive residues of one decimated
+//   sample, so the reads of a warp are contiguous), and stages only those
+//   CQ rows of the taps. The output tile O stays the reference's.
 // - Coalesced, vectorised stores (float4 when P == 1).
 // No tensor cores: true f32 FMAs. The grid gives every SM its resident
 // blocks at 16 demods and at 256 alike.
@@ -122,6 +130,8 @@ struct Geo {
   int row_stride;   // float2 per skewed row
   int raw_len;      // floats per plane of the raw staging span
   int ed_len;       // float2 of the E table (0 when not resident)
+  int stream;       // 1: the window is read from global memory per pass
+                    // and the taps staged per pass (TB = 1, raw_len = 0)
 };
 
 // e^{+i mod(omega i, 2pi)}, rounded as the reference's float32 tensor
@@ -250,6 +260,49 @@ __device__ __forceinline__ void modulate(const float* wr, const float* wi,
   }
 }
 
+// Streaming form of `modulate`: residues c0..c1-1 of one tile's window
+// (wr, wi in global memory), the residue fastest across threads so that a
+// warp reads contiguous samples; the same per-sample arithmetic.
+template <bool KEEP_E>
+__device__ __forceinline__ void modulate_stream(const float* wr,
+                                                const float* wi,
+                                                const float2* ed, float om,
+                                                int c0, int c1, int lt,
+                                                int tpt, const Geo& q,
+                                                float2* xrow) {
+  const int nc = c1 - c0;
+  const int n = q.Lrow * nc;
+  for (int f0 = lt; f0 < n; f0 += kMod * tpt) {
+    float vr[kMod], vi[kMod];
+    float2 e[kMod];
+#pragma unroll
+    for (int k = 0; k < kMod; ++k) {
+      const int f = f0 + k * tpt;
+      const int m = f / nc;
+      const int c = c0 + f - m * nc;
+      const int i = m * q.Q + c;
+      const bool in = f < n && i < q.W;
+      vr[k] = in ? __ldg(wr + i) : 0.f;
+      vi[k] = in ? __ldg(wi + i) : 0.f;
+      if constexpr (KEEP_E)
+        e[k] = f < n ? ed[c * q.Lrow + m] : make_float2(0.f, 0.f);
+      else
+        e[k] = in ? modulation(om, i) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kMod; ++k) {
+      const int f = f0 + k * tpt;
+      if (f < n) {
+        const int m = f / nc;
+        const int c = f - m * nc;
+        xrow[c * q.row_stride + skew(m)] =
+            make_float2(vr[k] * e[k].x - vi[k] * e[k].y,
+                        vi[k] * e[k].x + vr[k] * e[k].y);
+      }
+    }
+  }
+}
+
 template <int U, int NCH>
 __global__ void __launch_bounds__(kMaxThreads)
 route_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
@@ -264,14 +317,16 @@ route_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
   float* raw_im = raw_re + q.raw_len;
   float2* xm = reinterpret_cast<float2*>(raw_im + q.raw_len);
   float2* ed = xm + q.rows_len;                    // [Q][Lrow] or none
-  float* tp = reinterpret_cast<float*>(ed + q.ed_len);  // [P][Q][A4]
+  float* tp = reinterpret_cast<float*>(ed + q.ed_len);  // [P][Q or CQ][A4]
 
   const int n = blockIdx.y;
   const int g_begin = blockIdx.x * q.tiles_per_block;
   const int g_end = min(q.n_rows, g_begin + q.tiles_per_block);
   if (g_begin >= g_end) return;
   const long row = (long)chan_idx[n] * q.total;
-  int delta = stage_raw(z_re, z_im, row, g_begin, q, raw_re, raw_im);
+  int delta = q.stream ? 0
+                       : stage_raw(z_re, z_im, row, g_begin, q, raw_re,
+                                   raw_im);
 
   // Per-demod tables, built while the first span is in flight. Each
   // product and remainder is rounded as the reference's float32 tensor
@@ -284,10 +339,12 @@ route_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
     const int c = idx / q.Lrow;
     ed[idx] = modulation(om, (idx - c * q.Lrow) * q.Q + c);
   }
-  for (int idx = threadIdx.x; idx < q.P * q.Q * q.A; idx += blockDim.x) {
-    const int row_t = idx / q.A;
-    tp[row_t * q.A4 + idx - row_t * q.A] = taps[idx];
-  }
+  if (!q.stream)
+    for (int idx = threadIdx.x; idx < q.P * q.Q * q.A; idx += blockDim.x) {
+      const int row_t = idx / q.A;
+      tp[row_t * q.A4 + idx - row_t * q.A] = taps[idx];
+    }
+  const int tap_rows = q.stream ? q.CQ : q.Q;
 
   // This thread's work: residue group kk, tile tb of the batch, phase r,
   // outputs lb0 .. lb0+R-1 of that phase.
@@ -315,7 +372,29 @@ route_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
     for (int c0 = 0; c0 < q.Q; c0 += q.CQ) {
       const int c1 = min(q.Q, c0 + q.CQ);
       if (c0 > 0) __syncthreads();     // the last pass's rows are read
-      if (mine) {
+      if (q.stream) {
+        // This pass's taps into [P][CQ][A4], then its residue rows
+        // straight from the channel row.
+        const int nc = c1 - c0;
+        for (int idx = threadIdx.x; idx < q.P * nc * q.A; idx += blockDim.x) {
+          const int pr = idx / q.A;          // rr * nc + cc
+          const int rr = pr / nc;
+          const int cc = pr - rr * nc;
+          const int a = idx - pr * q.A;
+          tp[(rr * q.CQ + cc) * q.A4 + a] =
+              taps[(rr * q.Q + c0 + cc) * q.A + a];
+        }
+        if (mine) {
+          const long w0 = row + q.start + (long)g * q.S;
+          const int lm = kk * tpt + lt, n_mod = q.RS * tpt;
+          if (q.keep_e)
+            modulate_stream<true>(z_re + w0, z_im + w0, ed, om, c0, c1, lm,
+                                  n_mod, q, xrow);
+          else
+            modulate_stream<false>(z_re + w0, z_im + w0, ed, om, c0, c1, lm,
+                                   n_mod, q, xrow);
+        }
+      } else if (mine) {
         const float* wr = raw_re + delta + tb * q.S;
         const float* wi = raw_im + delta + tb * q.S;
         const int lm = kk * tpt + lt, n_mod = q.RS * tpt;
@@ -325,12 +404,15 @@ route_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
           modulate<false>(wr, wi, ed, om, c0, c1, lm, n_mod, q, xrow);
       }
       __syncthreads();
-      if (c1 == q.Q && g0 + q.TB < g_end)   // the raw span is free: fetch
+      // The raw span is free: fetch the next batch's.
+      if (!q.stream && c1 == q.Q && g0 + q.TB < g_end)
         delta = stage_raw(z_re, z_im, row, g0 + q.TB, q, raw_re, raw_im);
+      const int tc0 = q.stream ? c0 : 0;
       if (mine)
         for (int c = c0 + kk; c < c1; c += q.RS)
           fir_residue<U, NCH>(xrow + (c - c0) * q.row_stride + jg * (kR + 1),
-                              tp + (r * q.Q + c) * q.A4, q.A, ar, ai);
+                              tp + (r * tap_rows + c - tc0) * q.A4, q.A, ar,
+                              ai);
     }
     if (q.RS > 1) {
       // Groups 1..RS-1 hand their partial sums to group 0 through the
@@ -396,6 +478,7 @@ route_kernel(const float* __restrict__ z_re, const float* __restrict__ z_im,
 }
 
 constexpr size_t kSmemMax = 232448;   // opt-in dynamic smem per block
+constexpr int kMaxDevices = 64;
 
 template <int U, int NCH>
 int launch(const float* z_re, const float* z_im, const int* chan_idx,
@@ -403,27 +486,30 @@ int launch(const float* z_re, const float* z_im, const int* chan_idx,
            float* out_re, float* out_im, int N, Geo q, cudaStream_t stream) {
   const int tpt = q.P * q.G;
   if (q.TB < 1 || q.RS < 1 || q.RS * q.TB * tpt > kMaxThreads || q.CQ < 1
-      || q.CQ > q.Q || q.RS > q.CQ)
+      || q.CQ > q.Q || q.RS > q.CQ || (q.stream && q.TB != 1))
     return (int)cudaErrorInvalidValue;
   const int threads = ((q.RS * q.TB * tpt + 31) / 32) * 32;
   const long span = 3L + (long)(q.TB - 1) * q.S + q.W;
-  q.raw_len = (int)((span + 3) / 4 * 4);
+  q.raw_len = q.stream ? 0 : (int)((span + 3) / 4 * 4);
   q.rows_len = max(q.TB * q.CQ * q.row_stride,
                    (q.RS - 1) * kR * q.TB * tpt);
-  const size_t smem = sizeof(float) * (2 * (size_t)q.raw_len + q.P * q.Q * q.A4)
+  const size_t tap_len = (size_t)q.P * (q.stream ? q.CQ : q.Q) * q.A4;
+  const size_t smem = sizeof(float) * (2 * (size_t)q.raw_len + tap_len)
                       + sizeof(float2) * ((size_t)q.rows_len
                                           + (size_t)q.ed_len);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
+  // The attribute is per device: set it once on each device launched on.
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         route_kernel<U, NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kSmemMax);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev] = true;
   }
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, route_kernel<U, NCH>,
                                                 threads, smem);
@@ -448,7 +534,8 @@ int launch(const float* z_re, const float* z_im, const int* chan_idx,
 
 // Launch on `stream` over N demods x n_rows tiles; `taps` is the
 // [P][Q][A] polyphase layout with A a multiple of U (U in 4, 5, 6, 8);
-// (TB, RS, CQ, keep_e) is the shared-memory plan (`route_plan`). Returns a
+// (TB, RS, CQ, keep_e, stream_window) is the shared-memory plan
+// (`route_plan`). Returns a
 // cudaError_t (0 on success; cudaErrorInvalidValue for a plan that does
 // not fit).
 extern "C" int routed_shifted_resample_launch(
@@ -456,7 +543,7 @@ extern "C" int routed_shifted_resample_launch(
     const float* omega, const float* pw0, const float* taps, float* out_re,
     float* out_im, int N, int n_rows, int O, int P, int Q, int A, int U,
     int S, int W, int start, int TB, int RS, int CQ, int keep_e,
-    void* stream) {
+    int stream_window, void* stream) {
   Geo q{};
   q.total = total;
   q.n_rows = n_rows;
@@ -476,6 +563,7 @@ extern "C" int routed_shifted_resample_launch(
   q.RS = RS;
   q.CQ = CQ;
   q.keep_e = keep_e ? 1 : 0;
+  q.stream = stream_window ? 1 : 0;
   q.ed_len = keep_e ? (q.Q * q.Lrow + 1) / 2 * 2 : 0;
   if (A % U) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -35,7 +35,7 @@ from cubicsdr_tpu_torch.ops.fir import DelayLine, FirFilter, fir_block
 from cubicsdr_tpu_torch.ops.freqdem import FreqDem
 from cubicsdr_tpu_torch.ops.iir import FirstOrderIIR
 from cubicsdr_tpu_torch.ops.nco import NCOMixer
-from cubicsdr_tpu_torch.ops.planar import PLANAR, planes_of
+from cubicsdr_tpu_torch.ops.planar import PLANAR, dtype_zeros, planes_of
 from cubicsdr_tpu_torch.ops.resample import design_ratio, make_resampler
 from cubicsdr_tpu_torch.stream.op import StreamOp
 
@@ -53,14 +53,15 @@ class AnalogKit(StreamOp):
     kit has none, and for the post stage, which no kit has."""
 
     def __init__(self, demod: StreamOp, sample_rate: int, audio_rate: int,
-                 auto_gain: bool, batch_shape: tuple = ()):
+                 auto_gain: bool, batch_shape: tuple = (), time_axis=None):
         super().__init__()
         self.demod = demod
         P, Q = _audio_ratio(sample_rate, audio_rate)
         self.P, self.Q = P, Q
         self.resampler = make_resampler(P, Q, batch_shape=batch_shape,
                                         dtype=F32)
-        self.agc = AutoGain(batch_shape=batch_shape) if auto_gain else None
+        self.agc = (AutoGain(batch_shape=batch_shape, time_axis=time_axis)
+                    if auto_gain else None)
         self.audio_rate = audio_rate
 
     def init_state(self):
@@ -76,6 +77,22 @@ class AnalogKit(StreamOp):
         sr, a = self.resampler.apply(sr, a)
         return (sd, sa, sr, sp), a[..., None, :]   # mono channel axis
 
+    # --- time-sharding: the demod core by its own kind, the AGC
+    # replicated (its ceiling a max over time), the audio resampler's halo
+    # on the demodulated signal. ---
+    def shard_carries(self):
+        return (self.demod.shard_carries(),
+                self.agc.init_state() if self.agc else (),
+                self.resampler.shard_carries())
+
+    def shard_apply(self, carries, x, axis):
+        cd, sa, cr = carries
+        cd, a = self.demod.shard_apply(cd, x, axis)
+        if self.agc:
+            sa, a = self.agc.apply(sa, a)
+        cr, a = self.resampler.shard_apply(cr, a, axis)
+        return (cd, sa, cr), a[..., None, :]
+
 
 class _AnalogModem(Modem):
     auto_gain = False
@@ -84,14 +101,15 @@ class _AnalogModem(Modem):
         _, Q = _audio_ratio(sample_rate, audio_rate)
         return Q
 
-    def _demod_op(self, sample_rate, batch_shape, dtype):
+    def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
         raise NotImplementedError
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                  batch_shape=(), dtype=PLANAR):
-        return AnalogKit(self._demod_op(sample_rate, batch_shape, dtype),
+                  batch_shape=(), dtype=PLANAR, time_axis=None):
+        return AnalogKit(self._demod_op(sample_rate, batch_shape, dtype,
+                                        time_axis),
                          sample_rate, audio_rate, self.auto_gain,
-                         batch_shape)
+                         batch_shape, time_axis=time_axis)
 
 
 @register_modem
@@ -99,7 +117,7 @@ class ModemFM(_AnalogModem):
     name = "FM"
     default_sample_rate = 200000
 
-    def _demod_op(self, sample_rate, batch_shape, dtype):
+    def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
         return FreqDem(kf=0.5, batch_shape=batch_shape, dtype=dtype)
 
 
@@ -108,7 +126,7 @@ class ModemNBFM(_AnalogModem):
     name = "NBFM"
     default_sample_rate = 12500
 
-    def _demod_op(self, sample_rate, batch_shape, dtype):
+    def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
         return FreqDem(kf=0.5, batch_shape=batch_shape, dtype=dtype)
 
 
@@ -124,6 +142,8 @@ class _EnvelopeDC(StreamOp):
         h = -lp
         h[(n - 1) // 2] += 1.0
         self.fir = FirFilter(h, batch_shape, dtype=F32)
+        self.batch_shape = tuple(batch_shape)
+        self._k = n
 
     def init_state(self):
         return self.fir.init_state()
@@ -131,6 +151,21 @@ class _EnvelopeDC(StreamOp):
     def apply(self, state, x):
         re, im = planes_of(x)
         return self.fir.apply(state, torch.sqrt(re * re + im * im))
+
+    # Time-sharding: the FIR history is the envelope of the input tail
+    # (|.| is memoryless), so the halo is the raw IQ tail.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self._k - 1
+
+    def state_from_tail(self, tail):
+        re, im = planes_of(tail)
+        return torch.sqrt(re * re + im * im)
+
+    def shard_carry_init(self):
+        return dtype_zeros((*self.batch_shape, self._k - 1), PLANAR,
+                           self.device)
 
 
 @register_modem
@@ -142,26 +177,35 @@ class ModemAM(_AnalogModem):
     def uses_signal_output(self):
         return True
 
-    def _demod_op(self, sample_rate, batch_shape, dtype):
+    def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
         return _EnvelopeDC(batch_shape)
 
 
 class _DSBDemod(StreamOp):
     """Suppressed-carrier coherent detect with block squaring carrier
-    recovery: phi2 = EMA of arg(mean(x^2)); y = Re{x * exp(-j*phi2/2)}."""
+    recovery: phi2 = EMA of arg(mean(x^2)); y = Re{x * exp(-j*phi2/2)}.
+    Time-sharding: the carrier EMA is block-granular; with ``time_axis``
+    the block mean is a mean over it, so the state stays replicated."""
 
-    def __init__(self, batch_shape=(), rate=0.2):
+    shard_kind = "replicated"
+
+    def __init__(self, batch_shape=(), rate=0.2, time_axis=None):
         super().__init__()
         self.batch_shape = tuple(batch_shape)
         self.rate = rate
+        self.time_axis = time_axis
 
     def init_state(self):
         return torch.zeros((*self.batch_shape, 2), device=self.device)
 
     def apply(self, c2, x):
         re, im = planes_of(x)
-        vec = torch.stack([(re * re - im * im).mean(dim=-1),
-                           (2.0 * re * im).mean(dim=-1)], dim=-1)
+        m2r = (re * re - im * im).mean(dim=-1)
+        m2i = (2.0 * re * im).mean(dim=-1)
+        if self.time_axis is not None:
+            m2r = self.time_axis.pmean(m2r)
+            m2i = self.time_axis.pmean(m2i)
+        vec = torch.stack([m2r, m2i], dim=-1)
         c2 = c2 + (vec - c2) * self.rate
         phi2 = torch.atan2(c2[..., 1], c2[..., 0])
         cr = torch.cos(-0.5 * phi2)[..., None]
@@ -178,8 +222,8 @@ class ModemDSB(_AnalogModem):
     def uses_signal_output(self):
         return True
 
-    def _demod_op(self, sample_rate, batch_shape, dtype):
-        return _DSBDemod(batch_shape)
+    def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
+        return _DSBDemod(batch_shape, time_axis=time_axis)
 
 
 class _SSBDemod(StreamOp):
@@ -211,6 +255,19 @@ class _SSBDemod(StreamOp):
         hi, yi = fir_block(hi, im, self.h_im)
         return (hr, hi), yr - yi
 
+    # Time-sharding: state = planes of the input tail.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self.k - 1
+
+    def state_from_tail(self, tail):
+        return planes_of(tail)
+
+    def shard_carry_init(self):
+        return dtype_zeros((*self.batch_shape, self.k - 1), PLANAR,
+                           self.device)
+
 
 def _even_rate(sample_rate, audio_rate):
     r = max(int(sample_rate), MIN_BANDWIDTH)
@@ -229,7 +286,7 @@ class _SSBModem(_AnalogModem):
     def uses_signal_output(self):
         return True
 
-    def _demod_op(self, sample_rate, batch_shape, dtype):
+    def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
         return _SSBDemod(sample_rate, upper=self.upper,
                          batch_shape=batch_shape)
 
@@ -252,14 +309,16 @@ class _CWKit(StreamOp):
     cannot carry a 650 Hz beep before it is resampled)."""
 
     def __init__(self, sample_rate, audio_rate, beep_hz=650.0, gain=15.0,
-                 auto=True, batch_shape=(), dtype=PLANAR):
+                 auto=True, batch_shape=(), dtype=PLANAR, time_axis=None):
         super().__init__()
         P, Q = _audio_ratio(sample_rate, audio_rate)
         self.up = make_resampler(P, Q, batch_shape=batch_shape, dtype=dtype)
         self.omega = 2 * np.pi * beep_hz / audio_rate
         self.gain = gain
         self.nco = NCOMixer(batch_shape)
-        self.agc = AutoGain(batch_shape=batch_shape) if auto else None
+        self.agc = (AutoGain(batch_shape=batch_shape, time_axis=time_axis)
+                    if auto else None)
+        self.batch_shape = tuple(batch_shape)
 
     def init_state(self):
         return (self.up.init_state(), self.nco.init_state(),
@@ -273,6 +332,25 @@ class _CWKit(StreamOp):
         if self.agc:
             s_a, a = self.agc.apply(s_a, a)
         return (s_up, s_n, s_a), a[..., None, :]
+
+    # Time-sharding: the resampler's halo; the beep NCO's phase is closed
+    # form in the shard index; the AGC replicated.
+    def shard_carries(self):
+        return (self.up.shard_carries(),
+                torch.zeros(self.batch_shape, device=self.device),
+                self.agc.init_state() if self.agc else ())
+
+    def shard_apply(self, carries, x, axis):
+        from cubicsdr_tpu_torch.parallel.shardable import nco_shard_mix
+        c_up, base, s_a = carries
+        c_up, y = self.up.shard_apply(c_up, x, axis)
+        omega = torch.full(self.batch_shape, self.omega, dtype=F32,
+                           device=y.re.device)
+        base, y = nco_shard_mix(base, omega, y, axis)
+        a = y.re * float(np.float32(self.gain))
+        if self.agc:
+            s_a, a = self.agc.apply(s_a, a)
+        return (c_up, base, s_a), a[..., None, :]
 
 
 @register_modem
@@ -295,16 +373,19 @@ class ModemCW(_AnalogModem):
         return True
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                  batch_shape=(), dtype=PLANAR):
+                  batch_shape=(), dtype=PLANAR, time_axis=None):
         return _CWKit(sample_rate, audio_rate,
                       float(self.settings["offset"]),
                       float(self.settings["gain"]),
-                      str(self.settings["auto"]) == "on", batch_shape, dtype)
+                      str(self.settings["auto"]) == "on", batch_shape, dtype,
+                      time_axis)
 
 
 class _IQKit(StreamOp):
     """Stereo passthrough: (left, right) = (imag, real)
     (ref: ModemIQ.cpp:39-57)."""
+
+    shard_kind = "stateless"
 
     def apply(self, state, x):
         re, im = planes_of(x)
@@ -322,8 +403,16 @@ class ModemIQ(Modem):
         return int(audio_rate)
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                  batch_shape=(), dtype=PLANAR):
+                  batch_shape=(), dtype=PLANAR, time_axis=None):
         return _IQKit()
+
+
+def _reference_im(pr, pi):
+    """Im of the 38 kHz reference: the analytic pilot (pr, pi) squared and
+    normalised."""
+    p2r = pr * pr - pi * pi
+    p2i = 2.0 * pr * pi
+    return p2i / (torch.sqrt(p2r * p2r + p2i * p2i) + 1e-12)
 
 
 class _FMStereoKit(StreamOp):
@@ -398,10 +487,7 @@ class _FMStereoKit(StreamOp):
         # squaring.
         s_pr, pr = fir_block(s_pr, m, self.hp_re)
         s_pi, pi = fir_block(s_pi, m, self.hp_im)
-        p2r = pr * pr - pi * pi
-        p2i = 2.0 * pr * pi
-        mag = torch.sqrt(p2r * p2r + p2i * p2i) + 1e-12
-        ref_i = p2i / mag
+        ref_i = _reference_im(pr, pi)
         s_pd, m_al = self.pre_delay.apply(s_pd, m)
         # S = Im after the real-tap LPF = LPF(Im{m_al * conj(ref)})
         #   = LPF(-m_al * ref_i).
@@ -419,6 +505,41 @@ class _FMStereoKit(StreamOp):
         s_af, lr = self.audio_fir.apply(s_af, lr)
         return (s_fd, (s_pr, s_pi), s_pd, s_s, s_md, s_rm, s_rs, s_de,
                 s_af), lr
+
+    # --- time-sharding (the port's own: the JAX package does not shard
+    # FM stereo). Every FIR, delay and resampler takes its input tail as a
+    # halo (the two pilot FIRs share one halo of the discriminator
+    # output); the de-emphasis recurrence composes exactly across shards.
+    def shard_carries(self):
+        return (self.freqdem.shard_carries(),
+                torch.zeros((*self.bs, self.n_pilot - 1), device=self.device),
+                self.pre_delay.shard_carries(), self.s_fir.shard_carries(),
+                self.mono_delay.shard_carries(),
+                self.rs_mono.shard_carries(), self.rs_st.shard_carries(),
+                self.demph.shard_carries() if self.demph else (),
+                self.audio_fir.shard_carries())
+
+    def shard_apply(self, carries, x, axis):
+        from cubicsdr_tpu_torch.parallel.halo import streaming_halo
+        from cubicsdr_tpu_torch.parallel.shardable import shard_stage
+        c_fd, c_p, c_pd, c_s, c_md, c_rm, c_rs, c_de, c_af = carries
+        c_fd, m = self.freqdem.shard_apply(c_fd, x, axis)
+        h = self.n_pilot - 1
+        zm, c_p = streaming_halo(m, h, c_p, axis)
+        _, pr = fir_block(zm[..., :h], zm[..., h:], self.hp_re)
+        _, pi = fir_block(zm[..., :h], zm[..., h:], self.hp_im)
+        ref_i = _reference_im(pr, pi)
+        c_pd, m_al = shard_stage(self.pre_delay, c_pd, m, axis)
+        c_s, z_im = shard_stage(self.s_fir, c_s, -m_al * ref_i, axis)
+        c_md, m_d = shard_stage(self.mono_delay, c_md, m_al, axis)
+        c_rm, mono = self.rs_mono.shard_apply(c_rm, m_d, axis)
+        c_rs, ster = self.rs_st.shard_apply(c_rs, 2.0 * z_im, axis)
+        lr = torch.stack([0.568 * (mono + ster), 0.568 * (mono - ster)],
+                         dim=-2)
+        if self.demph:
+            c_de, lr = self.demph.shard_apply(c_de, lr, axis)
+        c_af, lr = shard_stage(self.audio_fir, c_af, lr, axis)
+        return (c_fd, c_p, c_pd, c_s, c_md, c_rm, c_rs, c_de, c_af), lr
 
 
 @register_modem
@@ -445,6 +566,6 @@ class ModemFMStereo(Modem):
         return Q
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                  batch_shape=(), dtype=PLANAR):
+                  batch_shape=(), dtype=PLANAR, time_axis=None):
         return _FMStereoKit(sample_rate, audio_rate,
                             int(self.settings["demph"]), batch_shape, dtype)

@@ -88,7 +88,12 @@ class Modem:
 
     def build_kit(self, sample_rate: int,
                   audio_rate: int = DEFAULT_AUDIO_RATE,
-                  batch_shape: tuple = (), dtype=PLANAR) -> StreamOp:
+                  batch_shape: tuple = (), dtype=PLANAR,
+                  time_axis=None) -> StreamOp:
+        """``time_axis``: the time ``Axis`` (parallel/mesh.py) when the
+        block's time axis is split over ranks (parallel/sharded.py):
+        block-statistic stages (AGC, carrier EMAs) then use collectives so
+        their state stays the same on every time shard."""
         raise NotImplementedError
 
     def uses_signal_output(self) -> bool:

@@ -22,7 +22,7 @@ import torch
 
 from cubicsdr_tpu_torch.modems.base import (
     DEFAULT_AUDIO_RATE, Modem, ModemArg, register_modem)
-from cubicsdr_tpu_torch.ops.planar import PLANAR, planes_of
+from cubicsdr_tpu_torch.ops.planar import PLANAR, dtype_ones, planes_of
 from cubicsdr_tpu_torch.stream.op import StreamOp
 
 LOCK_EVM = 0.005      # ref: ModemDigital.cpp:52-54
@@ -113,6 +113,18 @@ class ConstellationKit(StreamOp):
             (np.abs(pts) ** 2).astype(np.float32)))
         self.differential = differential
         self.batch_shape = tuple(batch_shape)
+        # Time-sharding: differential slicing carries the previous sample.
+        self.shard_kind = "tail" if differential else "stateless"
+
+    def shard_halo_len(self):
+        return 1
+
+    def state_from_tail(self, tail):
+        re, im = planes_of(tail)
+        return (re[..., 0], im[..., 0])
+
+    def shard_carry_init(self):
+        return dtype_ones((*self.batch_shape, 1), PLANAR, self.device)
 
     def init_state(self):
         if self.differential:
@@ -162,6 +174,8 @@ class FSKKit(StreamOp):
     argmax), fskdem semantics (m bits, k = rate/sps samples per symbol,
     normalized bandwidth bw; ref: ModemFSK.cpp:102-150)."""
 
+    shard_kind = "stateless"
+
     def __init__(self, m_bits: int, k: int, bw: float,
                  batch_shape: tuple = ()):
         super().__init__()
@@ -204,10 +218,22 @@ class GMSKKit(StreamOp):
     """GMSK via discriminator + integrate-and-dump at sps samples/symbol
     (gmskdem stand-in; ref: ModemGMSK.cpp:95-134)."""
 
+    shard_kind = "tail"
+
     def __init__(self, sps: int, batch_shape: tuple = ()):
         super().__init__()
         self.sps = int(sps)
         self.batch_shape = tuple(batch_shape)
+
+    def shard_halo_len(self):
+        return 1
+
+    def state_from_tail(self, tail):
+        re, im = planes_of(tail)
+        return (re[..., 0], im[..., 0])
+
+    def shard_carry_init(self):
+        return dtype_ones((*self.batch_shape, 1), PLANAR, self.device)
 
     def init_state(self):
         return (torch.ones(self.batch_shape, device=self.device),
@@ -277,7 +303,7 @@ def _const_modem(name_, points_fn, orders=None, default_order=None,
             return points_fn()
 
         def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                      batch_shape=(), dtype=PLANAR):
+                      batch_shape=(), dtype=PLANAR, time_axis=None):
             return ConstellationKit(self.points(), differential,
                                     batch_shape)
 
@@ -328,7 +354,7 @@ class ModemFSK(_DigitalModem):
         return max(int(sample_rate) // int(self.settings["sps"]), 1)
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                  batch_shape=(), dtype=PLANAR):
+                  batch_shape=(), dtype=PLANAR, time_axis=None):
         return FSKKit(int(self.settings["bps"]),
                       self.block_multiple(sample_rate),
                       float(self.settings["bw"]), batch_shape)
@@ -347,7 +373,7 @@ class ModemGMSK(_DigitalModem):
         return int(self.settings["sps"])
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
-                  batch_shape=(), dtype=PLANAR):
+                  batch_shape=(), dtype=PLANAR, time_axis=None):
         return GMSKKit(int(self.settings["sps"]), batch_shape)
 
 

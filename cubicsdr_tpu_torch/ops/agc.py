@@ -14,12 +14,19 @@ from cubicsdr_tpu_torch.stream.op import StreamOp
 
 
 class AutoGain(StreamOp):
+    """``time_axis``: the time ``Axis`` when the block's time axis is
+    split over ranks (parallel/sharded.py); the block ceiling is then a
+    max over it, so the EMA state stays the same on every time shard."""
+
+    shard_kind = "replicated"
+
     def __init__(self, rate: float = 0.025, target: float = 0.5,
-                 batch_shape: tuple = ()):
+                 batch_shape: tuple = (), time_axis=None):
         super().__init__()
         self.rate = float(rate)
         self.target = float(target)
         self.batch_shape = tuple(batch_shape)
+        self.time_axis = time_axis
 
     def init_state(self):
         # Three distinct tensors: the JAX package's leaves, and no leaf
@@ -35,5 +42,7 @@ class AutoGain(StreamOp):
         ceil_ma = ceil_ma + (ceil_prev - ceil_ma) * self.rate
         ceil_maa = ceil_maa + (ceil_ma - ceil_maa) * self.rate
         ceil = x.amax(dim=-1)
+        if self.time_axis is not None:
+            ceil = self.time_axis.pmax(ceil)
         gain = self.target / ceil_maa.clamp_min(1e-9)
         return (ceil, ceil_ma, ceil_maa), x * gain[..., None]

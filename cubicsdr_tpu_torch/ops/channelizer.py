@@ -76,6 +76,29 @@ class ChannelizerPFB(StreamOp):
                         device=self.device)
         return PC(z, z.clone())
 
+    @property
+    def hist_len(self) -> int:
+        """Raw-sample history equivalent (for the halo exchange)."""
+        return (self.J - 1) * self.M
+
+    def hist_from_samples(self, tail: PC) -> PC:
+        """The framed history state from the last (J-1)*M raw samples."""
+        def f(t):
+            return t.reshape(self.J - 1, self.M).flip(-1).transpose(0, 1)
+        return PC(f(tail.re), f(tail.im))
+
+    # Time-sharding: raw-sample tail -> framed history.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self.hist_len
+
+    def state_from_tail(self, tail):
+        return self.hist_from_samples(tail)
+
+    def shard_carry_init(self):
+        return dtype_zeros((self.hist_len,), PLANAR, self.device)
+
     def apply(self, hist: PC, x: PC):
         if x.shape[-1] % self.M:
             raise ValueError(f"block length {x.shape[-1]} is not a multiple "
@@ -136,6 +159,20 @@ class ChannelizerPFB2(StreamOp):
                         device=self.device)
         return (PC(z, z.clone()),
                 torch.zeros((), dtype=torch.int32, device=self.device))
+
+    # Time-sharding: state = (raw sample tail, step parity); with an even
+    # local step count the parity is shard-invariant (callers keep it so).
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self.hist_len
+
+    def state_from_tail(self, tail):
+        return (tail, torch.zeros((), dtype=torch.int32,
+                                  device=tail.re.device))
+
+    def shard_carry_init(self):
+        return self.init_state()[0]
 
     def apply(self, state, x: PC):
         samp_hist, parity = state

@@ -67,6 +67,15 @@ class FirFilter(_Taps):
     def apply(self, hist, x):
         return fir_block(hist, x, self.tap_set())
 
+    # Time-sharding: the carried state IS the input tail.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self.n_taps - 1
+
+    def shard_carry_init(self):
+        return self.init_state()
+
 
 class DelayLine(StreamOp):
     """Integer-sample delay y[t] = x[t-d] (zeros before the stream), used to
@@ -82,6 +91,15 @@ class DelayLine(StreamOp):
     def init_state(self):
         return dtype_zeros((*self.batch_shape, self.delay), self.dtype,
                            self.device)
+
+    # Time-sharding: the carried state IS the input tail.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self.delay
+
+    def shard_carry_init(self):
+        return self.init_state()
 
     def apply(self, hist, x):
         if self.delay == 0:

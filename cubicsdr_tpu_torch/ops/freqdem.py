@@ -38,3 +38,16 @@ class FreqDem(StreamOp):
 
     def apply(self, prev, x):
         return freqdem_block(prev, x, self.kf)
+
+    # Time-sharding: state = the previous input sample.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return 1
+
+    def state_from_tail(self, tail):
+        return PC(tail.re[..., 0], tail.im[..., 0])
+
+    def shard_carry_init(self):
+        s = dtype_ones(self.batch_shape, self.dtype, self.device)
+        return PC(s.re[..., None], s.im[..., None])

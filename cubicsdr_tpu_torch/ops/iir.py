@@ -96,6 +96,49 @@ class DCBlocker(StreamOp):
                PC(yr[..., -1], yi[..., -1]))
         return new, PC(yr, yi)
 
+    # --- time-sharding: the EXACT cross-shard composition of the
+    # recurrence (``compose_first_order``) on the differenced halo'd
+    # input. ---
+    def shard_carries(self):
+        return (dtype_zeros((*self.batch_shape, 1), PLANAR, self.device),
+                dtype_zeros(self.batch_shape, PLANAR, self.device))
+
+    def shard_apply(self, carries, x: PC, axis):
+        from cubicsdr_tpu_torch.parallel.halo import streaming_halo
+        c_x, y_end = carries
+        z, new_cx = streaming_halo(x, 1, c_x, axis)
+        a = 1.0 - self.alpha
+        yr, er = compose_first_order(a, z.re[..., 1:] - z.re[..., :-1],
+                                     y_end.re, axis)
+        yi, ei = compose_first_order(a, z.im[..., 1:] - z.im[..., :-1],
+                                     y_end.im, axis)
+        return (new_cx, PC(er, ei)), PC(yr, yi)
+
+
+def compose_first_order(a: float, f, y_end, axis):
+    """y[n] = a*y[n-1] + f[n] on one time shard of a stream split over
+    ``axis``, exactly: the local scan from a zero state is affine in the
+    true initial state, y[n] = y0[n] + a^{n+1} s0. Each shard publishes its
+    zero-state end value E with one small all_gather; shard t builds its
+    s0 from the previous block's end ``y_end`` and the E of shards before
+    it. f: [..., L]; y_end: [...]. Returns (y, the block's new end value,
+    the same on every shard)."""
+    L = f.shape[-1]
+    t, n_t = float(axis.index), float(axis.size)
+    a32 = torch.tensor(a, dtype=torch.float32, device=f.device)
+    y0 = affine_scan_1st_order(a, f, torch.zeros_like(y_end))
+    F = a32 ** L                                  # decay across one shard
+    Es = axis.all_gather(y0[..., -1])             # [n_t, ...]
+    j = torch.arange(Es.shape[0], dtype=torch.float32, device=f.device)
+    w = torch.where(j < t, F ** (t - 1.0 - j), torch.zeros_like(j))
+    s0 = (F ** t) * y_end + torch.tensordot(w, Es, dims=([0], [0]))
+    pw = a32 ** torch.arange(1, L + 1, dtype=torch.float32, device=f.device)
+    y = y0 + pw * s0[..., None]
+    w_all = F ** (n_t - 1.0 - j)
+    y_end_new = (F ** n_t) * y_end + torch.tensordot(w_all, Es,
+                                                      dims=([0], [0]))
+    return y, y_end_new
+
 
 class FirstOrderIIR(StreamOp):
     """y[n] = b0 x[n] + b1 x[n-1] - a1 y[n-1] on real data (FM de-emphasis,
@@ -120,3 +163,16 @@ class FirstOrderIIR(StreamOp):
         xh, f = fir_block(xh, x, self.b_taps)
         y = affine_scan_1st_order(-self.a[1], f, y_prev)
         return (xh, y[..., -1]), y
+
+    # Time-sharding: the numerator's one-sample halo, then the exact
+    # cross-shard composition of the recurrence.
+    def shard_carries(self):
+        return self.init_state()
+
+    def shard_apply(self, carries, x, axis):
+        from cubicsdr_tpu_torch.parallel.halo import streaming_halo
+        c_x, y_end = carries
+        z, new_cx = streaming_halo(x, 1, c_x, axis)
+        _, f = fir_block(z[..., :1], z[..., 1:], self.b_taps)
+        y, e = compose_first_order(-self.a[1], f, y_end, axis)
+        return (new_cx, e), y

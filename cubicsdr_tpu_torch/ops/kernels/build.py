@@ -30,10 +30,10 @@ _L = ctypes.c_long
 # extern "C" entry points: name -> argtypes (restype int = cudaError_t).
 _SIGNATURES = {
     "pfbch2_planar_launch": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _P,
-                             _P, _P, _I, _I, _I, _I, _P],
+                             _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "routed_shifted_resample_launch": [_P, _P, _L, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _I, _I, _P],
+                                       _I, _I, _I, _I, _I, _I, _P],
 }
 
 

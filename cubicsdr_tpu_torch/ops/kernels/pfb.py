@@ -93,26 +93,44 @@ def pfb_transform_consts(M: int) -> np.ndarray:
     return np.stack([v.real, v.imag], -1).astype(np.float32).ravel()
 
 
-def pfb_plan(M: int, J: int) -> tuple[int, int]:
-    """The kernel's steps per tile T and its shared memory in bytes: the
-    largest T in (128, 64, 32) that leaves two blocks per SM, else the
-    largest that fits one. The byte count is the kernel's own layout (two
-    staged windows of both planes, the [T][M+1] branch-sum tile, F for the
-    product form, the taps)."""
+def pfb_plan(M: int, J: int) -> tuple[int, int, int, int]:
+    """The kernel's steps per tile T, its shared memory in bytes, its
+    staged windows and the rows KB of F it holds at once: (T, bytes,
+    stages, KB). First the largest T in (128, 64, 32) that leaves two
+    blocks per SM, else the largest that fits one, with two staged
+    windows and F whole (KB = M). Where none fits (the product form at
+    M >= 134), one staged window and F tiled over blocks of KB output
+    channels: F whole at the largest T that holds it, else the largest T
+    with KB >= 32, else any KB >= 4 (a multiple of the kernel's 4 outputs
+    per warp item). The byte count is the kernel's own layout (the staged
+    windows of both planes, the [T][M+1] branch-sum tile, KB rows of F
+    for the product form, the taps)."""
     D = M // 2
+    product = pfb_form(M, J) == "product"
     fits = []
     for T in (128, 64, 32):
         win = ((T + 2 * J - 1) * D + 3) // 4 * 4
-        f = 2 * M * M if pfb_form(M, J) == "product" else 0
+        f = 2 * M * M if product else 0
         nbytes = 4 * (4 * win + 2 * T * (M + 1) + f + M * J)
         if nbytes <= _SMEM_TWO_PER_SM:
-            return T, nbytes
+            return T, nbytes, 2, M
         if nbytes <= SMEM_MAX:
-            fits.append((T, nbytes))
-    if not fits:
-        raise ValueError(f"PFBCH2 with M={M}, J={J} does not fit the "
-                         f"kernel's shared memory")
-    return fits[0]
+            fits.append((T, nbytes, 2, M))
+    if fits:
+        return fits[0]
+    blocks = []
+    for T in (128, 64, 32):
+        win = ((T + 2 * J - 1) * D + 3) // 4 * 4
+        base = 4 * (2 * win + 2 * T * (M + 1) + M * J)
+        kb = min(M, (SMEM_MAX - base) // (8 * M) // 4 * 4) if product else M
+        if kb >= 4 or kb == M:
+            blocks.append((T, base + 8 * kb * M * product, 1, kb))
+    for least in (M, 32, 4):
+        for plan in blocks:
+            if plan[3] >= min(least, M):
+                return plan
+    raise ValueError(f"PFBCH2 with M={M}, J={J} does not fit the "
+                     f"kernel's shared memory")
 
 
 def pfbch2_planar(z_re, z_im, h_poly, w_re, w_im, c_re, c_im, parity):
@@ -151,12 +169,12 @@ def pfbch2_planar(z_re, z_im, h_poly, w_re, w_im, c_re, c_im, parity):
         return out_re, out_im
     consts = (np.zeros(0, np.float32) if pfb_form(M, J) == "product"
               else pfb_transform_consts(M))
-    T, _ = pfb_plan(M, J)
+    T, _, stages, kb = pfb_plan(M, J)
     code = lib.pfbch2_planar_launch(
         z_re.data_ptr(), z_im.data_ptr(), z_len, h_poly.data_ptr(),
         w_re.data_ptr(), w_im.data_ptr(), c_re.data_ptr(), c_im.data_ptr(),
         consts.ctypes.data, consts.size, parity.data_ptr(),
-        out_re.data_ptr(), out_im.data_ptr(), M, J, n_steps, T,
+        out_re.data_ptr(), out_im.data_ptr(), M, J, n_steps, T, stages, kb,
         build.stream_ptr(z_re))
     build.check_launch(lib, code, "pfbch2_planar_launch")
     pfbch2_planar.launches += 1

@@ -107,17 +107,24 @@ def route_taps(ker: np.ndarray, Q: int):
 
 
 def route_plan(P: int, Q: int, O: int, KK: int, A: int):
-    """The CUDA kernel's shared-memory plan: (TB, RS, CQ, keep_e, bytes).
+    """The CUDA kernel's shared-memory plan: (TB, RS, CQ, keep_e, bytes,
+    stream).
 
     TB tiles per batch, RS residue groups (thread groups that split a
     tile's residues and add their partial sums), CQ residue rows per pass,
-    and whether the E table stays resident. A resident E first; then the
+    whether the E table stays resident, and whether the window streams.
+    A resident window first (stream False): a resident E first; then the
     most threads (TB * RS * P * ceil(O/P / 8), counted up to 128; residue
     groups may take a block to 256 when its batch is cut short), the
-    fewest passes and the most tiles per batch. The FM path (Q = 5) keeps 8 tiles, every
-    residue and E; NBFM (Q = 40, 64) fits one tile, split over 16 groups.
-    The byte count is the kernel's own layout (raw span of both planes,
-    taps, rows or the reduction over them, E)."""
+    fewest passes and the most tiles per batch. The FM path (Q = 5) keeps
+    8 tiles, every residue and E; NBFM (Q = 40, 64) fits one tile, split
+    over 16 groups. Only where no tile's window fits (Q in the hundreds
+    to thousands: RTL-SDR rates, 30.72 MS/s digital groups) does the
+    window stream (stream True, TB = 1): each pass reads its CQ residue
+    rows of the window from global memory and stages only those CQ rows
+    of taps, so the window and the taps never reside whole. The byte
+    count is the kernel's own layout (raw span of both planes, taps,
+    rows or the reduction over them, E)."""
     Ob = O // P
     G = -(-Ob // _R)
     Lrow = G * _R + A
@@ -129,7 +136,7 @@ def route_plan(P: int, Q: int, O: int, KK: int, A: int):
     nbytes = (4 * (2 * ((3 + (tb0 - 1) * S + W + 3) // 4 * 4) + P * Q * A4)
               + 8 * ((Q * Lrow + 1) // 2 * 2 + tb0 * Q * row_stride))
     if nbytes <= SMEM_MAX:             # the whole batch fits: no search
-        return tb0, 1, Q, True, nbytes
+        return tb0, 1, Q, True, nbytes, False
     for keep_e in (True, False):
         e_len = (Q * Lrow + 1) // 2 * 2 if keep_e else 0
         best = None
@@ -147,12 +154,27 @@ def route_plan(P: int, Q: int, O: int, KK: int, A: int):
                     key = (min(tb * rs * tpt, _THREADS), -(-Q // cq), tb)
                     if best is None or key[0] > best[0][0] or (
                             key[0] == best[0][0] and key[1] < best[0][1]):
-                        best = (key, (tb, rs, cq, keep_e, nbytes))
+                        best = (key, (tb, rs, cq, keep_e, nbytes, False))
                     break
         if best is not None:
             return best[1]
+    # Streaming: one tile per batch, the most residue groups (up to 256
+    # threads), then the most residues per pass.
+    for keep_e in (True, False):
+        e_len = (Q * Lrow + 1) // 2 * 2 if keep_e else 0
+        room = SMEM_MAX - 8 * e_len
+        for rs in range(min(_MAX_THREADS // tpt, Q), 0, -1):
+            red = (rs - 1) * _R * tpt
+            cq = min(Q, room // (4 * P * A4 + 8 * row_stride))
+            while cq >= rs and (4 * P * cq * A4
+                                + 8 * max(cq * row_stride, red)) > room:
+                cq -= 1
+            if cq >= rs:
+                nbytes = (4 * P * cq * A4
+                          + 8 * (max(cq * row_stride, red) + e_len))
+                return 1, rs, cq, keep_e, nbytes, True
     raise ValueError(f"route {P}/{Q} with O={O}, KK={KK}: one tile's "
-                     f"window does not fit the kernel's shared memory")
+                     f"residue rows do not fit the kernel's shared memory")
 
 
 def _taps_buffer(rs):
@@ -200,7 +222,8 @@ def routed_shifted_resample(z_re, z_im, chan_idx, omega, phase_w0, rs, toep):
     taps, U = _taps_buffer(rs)
     build.require(taps, "route_taps", dev, f32)
     n_rows = n_out // O
-    tb, rs_groups, cq, keep_e, _ = route_plan(P, Q, O, KK, taps.shape[-1])
+    tb, rs_groups, cq, keep_e, _, stream = route_plan(P, Q, O, KK,
+                                                      taps.shape[-1])
     out_re = torch.empty((N, n_out), dtype=f32, device=dev)
     out_im = torch.empty((N, n_out), dtype=f32, device=dev)
     if N == 0 or n_rows == 0:
@@ -210,7 +233,7 @@ def routed_shifted_resample(z_re, z_im, chan_idx, omega, phase_w0, rs, toep):
         omega.data_ptr(), phase_w0.data_ptr(), taps.data_ptr(),
         out_re.data_ptr(), out_im.data_ptr(), N, n_rows, O, P, Q,
         taps.shape[-1], U, S, W, start, tb, rs_groups, cq, int(keep_e),
-        build.stream_ptr(z_re))
+        int(stream), build.stream_ptr(z_re))
     build.check_launch(lib, code, "routed_shifted_resample_launch")
     routed_shifted_resample.launches += 1
     return out_re, out_im

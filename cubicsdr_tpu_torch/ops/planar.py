@@ -94,6 +94,30 @@ def pc_mul_conj(a: PC, b: PC) -> PC:
     return PC(a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im)
 
 
+def phasor_ramp_outer(theta0, omega, L: int, block: int = 512) -> PC:
+    """e^{i(theta0 + omega*k)} for k in [0, L) by angle addition,
+    k = a*B + b: phasor = P1[a] * P2[b], from about 2*sqrt(L) cos/sin
+    evaluations, each argument wrapped mod 2*pi (the JAX package's
+    ``phasor_ramp_outer``, in its float32 rounding). theta0, omega: [...]
+    broadcastable; returns PC [..., L]."""
+    B = block
+    A = -(-L // B)
+    dev = theta0.device
+    a = torch.arange(A, dtype=torch.float32, device=dev) * B
+    b = torch.arange(B, dtype=torch.float32, device=dev)
+    two_pi = float(np.float32(2.0 * np.pi))
+    th_a = torch.remainder(theta0[..., None] + omega[..., None] * a, two_pi)
+    th_b = torch.remainder(omega[..., None] * b, two_pi)
+    p1r, p1i = torch.cos(th_a), torch.sin(th_a)          # [..., A]
+    p2r, p2i = torch.cos(th_b), torch.sin(th_b)          # [..., B]
+    re = p1r[..., :, None] * p2r[..., None, :] - p1i[..., :, None] * p2i[
+        ..., None, :]
+    im = p1r[..., :, None] * p2i[..., None, :] + p1i[..., :, None] * p2r[
+        ..., None, :]
+    return PC(re.reshape(*re.shape[:-2], A * B)[..., :L],
+              im.reshape(*im.shape[:-2], A * B)[..., :L])
+
+
 @lru_cache(maxsize=None)
 def idft_mats_np(M: int):
     """Planar M * inverse-DFT matrix (no 1/M), float32 (re, im)."""

@@ -135,6 +135,15 @@ class RationalResampler(StreamOp):
         y = planar_resample_matmul(z, self)
         return xtail(z, self.hist_len), y
 
+    # Time-sharding: the carried state IS the input tail.
+    shard_kind = "tail"
+
+    def shard_halo_len(self) -> int:
+        return self.hist_len
+
+    def shard_carry_init(self):
+        return self.init_state()
+
 
 # ------------------------------------------------------- multi-stage ----
 
@@ -194,12 +203,26 @@ class ResamplerChain(StreamOp):
             new.append(s)
         return tuple(new), x
 
+    # Time-sharding: each stage exchanges its own (intermediate) input
+    # tail; every stage's local length divides its Q.
+    def shard_carries(self):
+        return tuple(rs.shard_carry_init() for rs in self.stages)
+
+    def shard_apply(self, carries, x, axis):
+        from cubicsdr_tpu_torch.parallel.shardable import shard_stage
+        new = []
+        for rs, c in zip(self.stages, carries):
+            c, x = shard_stage(rs, c, x, axis)
+            new.append(c)
+        return tuple(new), x
+
 
 class IdentityResampler(StreamOp):
     """Unity-ratio passthrough, interface-identical to RationalResampler."""
 
     P = Q = 1
     hist_len = 0
+    shard_kind = "tail"
 
     def __init__(self, batch_shape: tuple = (), dtype=PLANAR):
         super().__init__()
@@ -208,6 +231,12 @@ class IdentityResampler(StreamOp):
 
     def init_state(self):
         return dtype_zeros((*self.batch_shape, 0), self.dtype, self.device)
+
+    def shard_halo_len(self) -> int:
+        return 0
+
+    def shard_carry_init(self):
+        return self.init_state()
 
     def apply(self, state, x):
         return state, x

@@ -114,6 +114,46 @@ class ChannelFrontend(StreamOp):
         s_r, y = self.resampler.apply(s_r, y)
         return (s_n, s_r), y
 
+    # --- time-sharding: the NCO phase is closed form in the shard index
+    # (no collective); the resampler exchanges its input tail. ---
+    def shard_carries(self):
+        if self.folded:
+            return (self.nco.init_state(),
+                    self._stage1.shard_carry_init(),
+                    tuple(s.shard_carry_init() for s in self._rest))
+        return (self.nco.init_state(), self.resampler.shard_carries())
+
+    def _shard_rest(self, c_rest, y, axis):
+        from cubicsdr_tpu_torch.parallel.shardable import shard_stage
+        new_rest = []
+        for s_i, st_i in zip(self._rest, c_rest):
+            st_i, y = shard_stage(s_i, st_i, y, axis)
+            new_rest.append(st_i)
+        return tuple(new_rest), y
+
+    def shard_apply(self, carries, inputs, axis):
+        from cubicsdr_tpu_torch.parallel.halo import streaming_halo
+        from cubicsdr_tpu_torch.parallel.shardable import (
+            nco_shard_mix, shard_phase)
+        x, omega = inputs
+        if self.folded:
+            base, c1, c_rest = carries
+            omega = torch.as_tensor(omega, dtype=torch.float32,
+                                    device=base.device)
+            L = x.shape[-1]
+            phase0 = shard_phase(base, omega, axis.index * L)
+            z, new_c1 = streaming_halo(x, self._stage1.hist_len, c1, axis)
+            y = self._folded_core(z, omega, phase0)
+            new_base = torch.remainder(base + omega * float(axis.size * L),
+                                       TWO_PI)
+            new_rest, y = self._shard_rest(c_rest, y, axis)
+            return (new_base, new_c1, new_rest), y
+        base, c_r = carries
+        base, y = nco_shard_mix(base, torch.as_tensor(
+            omega, dtype=torch.float32, device=base.device), x, axis)
+        c_r, y = self.resampler.shard_apply(c_r, y, axis)
+        return (base, c_r), y
+
 
 class RoutedChannelFrontend(ChannelFrontend):
     """Fused route + NCO + resample: consumes the CHANNEL matrix [M, Lc]
@@ -182,6 +222,35 @@ class RoutedChannelFrontend(ChannelFrontend):
         new_phase = torch.remainder(phase0 + omega * chans.shape[-1], TWO_PI)
         new_rest, y = self._rest_apply(rest, y)
         return (new_phase, new_hist, new_rest), y
+
+    # --- time-sharding: ONE per-channel halo exchange ([M, hist] tail)
+    # feeds the route kernel in place of per-demod halos; the NCO phase is
+    # closed form, phase0 = base + omega * t * L. ---
+    def shard_carries(self):
+        return (self.nco.init_state(),
+                dtype_zeros((self.M, self._stage1.hist_len), PLANAR,
+                            self.device),
+                tuple(s.shard_carry_init() for s in self._rest))
+
+    def shard_apply(self, carries, inputs, axis):
+        from cubicsdr_tpu_torch.parallel.halo import streaming_halo
+        from cubicsdr_tpu_torch.parallel.shardable import shard_phase
+        chans, chan_idx, omega = inputs
+        base, c1, c_rest = carries
+        omega = torch.as_tensor(omega, dtype=torch.float32,
+                                device=base.device)
+        L = chans.shape[-1]
+        rs = self._stage1
+        phase0 = shard_phase(base, omega, axis.index * L)
+        z, new_c1 = streaming_halo(chans, rs.hist_len, c1, axis)
+        phase_w0 = torch.remainder(phase0 + omega * (rs.Q - rs.KK), TWO_PI)
+        y = PC(*routed_shifted_resample(
+            z.re, z.im, chan_idx.to(torch.int32), omega, phase_w0, rs,
+            rs.toeplitz(self.tile)[0]))
+        new_base = torch.remainder(base + omega * float(axis.size * L),
+                                   TWO_PI)
+        new_rest, y = self._shard_rest(c_rest, y, axis)
+        return (new_base, new_c1, new_rest), y
 
 
 def shift_omegas(demod_freqs, channel_centers, channel_rate):

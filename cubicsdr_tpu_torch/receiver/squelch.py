@@ -34,12 +34,17 @@ class SquelchGate(StreamOp):
     Digital groups pass ``audio=None`` (symbol modems emit no audio; the
     meter still runs on IQ, ref: DemodulatorThread.cpp:142-196): the level
     comes from the IQ magnitude measured at ``sample_rate`` = the IQ rate,
-    and the output has no ``peak`` or ``audio``."""
+    and the output has no ``peak`` or ``audio``.
+
+    ``time_axis``: the time ``Axis`` when the block's time axis is split
+    over ranks; the level and peak statistics are then a mean and a max
+    over it, so the squelch EMAs stay the same on every time shard."""
 
     def __init__(self, sample_rate: float, n_demods: int,
-                 use_signal_out=None):
+                 use_signal_out=None, time_axis=None):
         super().__init__()
         self.sample_rate = float(sample_rate)
+        self.time_axis = time_axis
         self.bs = (n_demods,)
         self.register_buffer(
             "use_signal_out",
@@ -58,15 +63,22 @@ class SquelchGate(StreamOp):
     def apply(self, state, inputs):
         audio, iq, squelch_level, squelch_enabled = inputs
         dev = iq.re.device
+        ta = self.time_axis
+        n_t = ta.size if ta is not None else 1
+
+        def gmean(v):        # the block mean, global across time shards
+            return ta.pmean(v) if ta is not None else v
+
         # Reference sampleTime = len(iq)/iqRate; the audio block spans the
         # same duration, so measure it on whichever signal the gate's rate
         # belongs to.
-        sample_time = (iq if audio is None else audio).shape[-1] \
+        sample_time = n_t * (iq if audio is None else audio).shape[-1] \
             / self.sample_rate
         re, im = planes_of(iq)
-        current = linear_to_db(torch.sqrt(re * re + im * im).mean(dim=-1))
+        current = linear_to_db(gmean(torch.sqrt(re * re + im * im).mean(
+            dim=-1)))
         if audio is not None:
-            lvl_audio = linear_to_db(audio.abs().mean(dim=(-2, -1)))
+            lvl_audio = linear_to_db(gmean(audio.abs().mean(dim=(-2, -1))))
             current = torch.where(self.use_signal_out, lvl_audio, current)
 
         sf, sc = state["floor"], state["ceil"]
@@ -95,7 +107,8 @@ class SquelchGate(StreamOp):
         out = {"squelched": squelched, "level": lvl, "floor": sf,
                "ceil": sc}
         if audio is not None:
-            out["peak"] = audio.abs().amax(dim=(-2, -1))
+            peak = audio.abs().amax(dim=(-2, -1))
+            out["peak"] = ta.pmax(peak) if ta is not None else peak
             out["audio"] = torch.where(squelched[..., None, None],
                                        torch.zeros_like(audio), audio)
         return new_state, out

@@ -8,6 +8,22 @@ builds the state on the op's device.
 
 ``apply`` deliberately shadows ``nn.Module.apply(fn)`` (the recursive
 initialiser): no stage of this package uses that.
+
+Time-sharding protocol (``parallel/sharded.py``): when the block's time
+axis is split over the ranks of a mesh axis, an op takes part in one of
+three ways, declared by ``shard_kind`` as in the JAX package:
+
+- "tail": the carried state can be rebuilt from the last
+  ``shard_halo_len()`` input samples (FIR, resampler and discriminator
+  history). The driver exchanges the input tail between time shards (one
+  cyclic permute, ``parallel/halo.py``) and calls ``state_from_tail``.
+- "replicated": the state is block-granular (EMA trackers) and stays the
+  same on every time shard because the op computes its block statistics
+  with collectives over its ``time_axis``.
+- "stateless": no carried state.
+
+Composite kits implement ``shard_apply(carries, x, axis)`` themselves,
+composing their parts through ``parallel.shardable.shard_stage``.
 """
 
 from __future__ import annotations
@@ -43,6 +59,33 @@ class StreamOp(nn.Module):
 
     def apply(self, state: State, x):
         raise NotImplementedError
+
+    # --- time-sharding protocol (defaults for tail-kind ops) ---
+    shard_kind: str | None = None     # "tail" | "replicated" | "stateless"
+
+    def shard_halo_len(self) -> int:
+        raise NotImplementedError(f"{type(self).__name__} is not shardable")
+
+    def state_from_tail(self, tail):
+        """The carried state rebuilt from the last ``shard_halo_len()``
+        input samples (in the op's input representation)."""
+        return tail
+
+    def shard_carry_init(self):
+        """The initial halo carry (the input tail at stream start)."""
+        raise NotImplementedError
+
+    def shard_carries(self):
+        """Initial carries for ``shard_apply`` (composites override)."""
+        from cubicsdr_tpu_torch.parallel.shardable import (
+            shard_stage_carry_init)
+        return shard_stage_carry_init(self)
+
+    def shard_apply(self, carries, x, axis):
+        """Run this op on a time shard; ``axis`` is the time ``Axis``
+        (``parallel/mesh.py``). Composites override."""
+        from cubicsdr_tpu_torch.parallel.shardable import shard_stage
+        return shard_stage(self, carries, x, axis)
 
     def forward(self, state: State, x):
         return self.apply(state, x)

@@ -321,19 +321,24 @@ def test_cli_modems_listing_equals_jax(capsys):
 
 
 def test_cli_parser_has_the_jax_subcommands_and_device():
-    """Every subcommand of the JAX CLI but multihost and bench; --device
-    defaults to the card; rx has no --mesh."""
+    """Every subcommand of the JAX CLI but bench; --device defaults to the
+    card, and so does multihost's device kind (--devices); rx takes
+    --mesh with the options only that mode reads."""
     import argparse
     sub = next(a for a in cli.build_parser()._actions
                if isinstance(a, argparse._SubParsersAction))
     assert set(sub.choices) == {"demod", "waterfall", "rx", "serve",
-                                "modems"}
+                                "multihost", "modems"}
     argv = {"demod": ["x", "-r", "1", "-f", "1"], "waterfall": ["x", "-r",
             "1"], "rx": ["s", "x"], "serve": []}
     for name, args in argv.items():
         assert sub.choices[name].parse_args(args).device == "cuda"
-    with pytest.raises(SystemExit):
-        sub.choices["rx"].parse_args(["s", "x", "--mesh", "time=2"])
+    assert sub.choices["multihost"].parse_args([]).devices == "cuda"
+    a = sub.choices["rx"].parse_args(
+        ["s", "x", "--mesh", "time=2", "--fft-size", "256", "--checkpoint",
+         "c.npz", "--record", "rec"])
+    assert (a.mesh, a.fft_size, a.checkpoint, a.record) == (
+        "time=2", 256, "c.npz", "rec")
 
 
 def test_cli_on_the_card_without_cuda_fails_and_writes_nothing(capture,

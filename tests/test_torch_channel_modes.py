@@ -263,9 +263,9 @@ def test_route_plan_fits_every_fused_group_in_pfbch_mode():
             fe = rx.frontends[0]
             rs = fe._stage1
             kp, _ = route_taps(rs.ker_np, rs.Q)
-            tb, groups, cq, keep_e, nbytes = route_plan(
+            tb, groups, cq, keep_e, nbytes, stream = route_plan(
                 rs.P, rs.Q, fe.tile, rs.KK, kp.shape[-1])
-            assert nbytes <= SMEM_MAX and keep_e
+            assert nbytes <= SMEM_MAX and keep_e and not stream
             threads = tb * groups * rs.P * -(-fe.tile // rs.P // 8)
             key = (rs.P, rs.Q, fe.tile)
             if key == (1, 2, 128):                 # the whole batch fits

@@ -55,6 +55,23 @@ _APP_SHELL = (
     "cubicsdr_tpu_torch.__main__")
 
 
+# The sharded receiver's modules (torch.distributed, one rank per process).
+_SHARDED = (
+    "cubicsdr_tpu_torch.parallel", "cubicsdr_tpu_torch.parallel.mesh",
+    "cubicsdr_tpu_torch.parallel.halo",
+    "cubicsdr_tpu_torch.parallel.shardable",
+    "cubicsdr_tpu_torch.parallel.sharded",
+    "cubicsdr_tpu_torch.parallel.multihost")
+
+
+def test_sharded_modules_import_without_jax():
+    """The sharded receiver, its mesh, halo and shard drivers and the
+    multi-process job, imported in one fresh interpreter, load neither
+    jax nor any module of the JAX package."""
+    _run("import sys\n" + "".join(f"import {m}\n" for m in _SHARDED)
+         + _CHECK)
+
+
 @pytest.mark.parametrize("module", [
     "cubicsdr_tpu_torch.app.runner", "cubicsdr_tpu_torch.app.checkpoint",
     "cubicsdr_tpu_torch.visual", "cubicsdr_tpu_torch.receiver.manager",
@@ -73,6 +90,7 @@ def test_every_port_module_imports_alone():
     assert "cubicsdr_tpu_torch.native" in mods
     assert "cubicsdr_tpu_torch.io.soapy" in mods
     assert set(_APP_SHELL) <= set(mods), set(_APP_SHELL) - set(mods)
+    assert set(_SHARDED) <= set(mods), set(_SHARDED) - set(mods)
     _run("import sys, importlib\n"
          f"for m in {mods!r}:\n"
          "    importlib.import_module(m)\n" + _CHECK)

@@ -173,9 +173,17 @@ def _kernel_order(ch, z, parity):
         y_re = F[..., 0] @ u_re - F[..., 1] @ u_im
         y_im = F[..., 0] @ u_im + F[..., 1] @ u_re
     else:
-        cr, ci = ch.c_re[:, None], ch.c_im[:, None]
-        f_re = cr * ch.w_re - ci * ch.w_im
-        f_im = cr * ch.w_im + ci * ch.w_re
+        # F folded in blocks of KB output channels, as the plan holds it.
+        from cubicsdr_tpu_torch.ops.kernels.pfb import pfb_plan
+        kb = pfb_plan(M, J)[3]
+        f_re, f_im = [], []
+        for k0 in range(0, M, kb):
+            cr, ci = ch.c_re[k0:k0 + kb, None], ch.c_im[k0:k0 + kb, None]
+            w_re, w_im = ch.w_re[k0:k0 + kb], ch.w_im[k0:k0 + kb]
+            f_re.append(cr * w_re - ci * w_im)
+            f_im.append(cr * w_im + ci * w_re)
+        f_re, f_im = torch.cat(f_re), torch.cat(f_im)
+        assert f_re.shape == (M, M)
         y_re = torch.zeros((M, n_steps))
         y_im = torch.zeros((M, n_steps))
         for r in range(M):
@@ -189,12 +197,13 @@ def _kernel_order(ch, z, parity):
 @pytest.mark.parametrize("M,n_steps,parity,J", [
     (16, 640, 0, 8), (6, 256, 0, 8), (10, 253, 1, 8), (16, 127, 1, 8),
     (8, 300, 1, 8), (20, 300, 1, 8), (40, 129, 0, 8), (64, 200, 1, 8),
-    (6, 101, 1, 12)])
+    (6, 101, 1, 12), (136, 97, 1, 8), (200, 64, 0, 8), (246, 75, 1, 8)])
 def test_kernel_layout_matches_plain(rng, M, n_steps, parity, J):
     """The CUDA kernel's host layouts, evaluated in its order (FFT for
     M = 8, 16, 64; DFT for M = 6, 10; the product with F = c_k W for
-    M = 20, 40 and for a channelizer with 12 taps per branch), equal the
-    plain version, odd step counts and parity included, atol 2e-4."""
+    M = 20, 40 and for a channelizer with 12 taps per branch; at M = 136,
+    200 and 246 with F folded in blocks of the plan's KB channels), equal
+    the plain version, odd step counts and parity included, atol 2e-4."""
     from cubicsdr_tpu_torch.ops.kernels.pfb import pfb_form
     ch = ChannelizerPFB2(M, taps_per_channel=J)
     assert ch.J == J
@@ -218,6 +227,61 @@ def test_plan_fits_every_source_rate():
     from cubicsdr_tpu_torch.ops.kernels.pfb import SMEM_MAX, pfb_plan
     for fs in range(500_000, 64_000_001, 500_000):
         M = optimal_channel_count(fs)
-        T, nbytes = pfb_plan(M, 8)
+        T, nbytes, stages, kb = pfb_plan(M, 8)
         assert T in (32, 64, 128) and nbytes <= SMEM_MAX
-    assert pfb_plan(16, 8) == (128, 36224)
+        assert (stages, kb) == (2, M)
+    assert pfb_plan(16, 8) == (128, 36224, 2, 16)
+
+
+def _plan_before(M: int, J: int):
+    """``pfb_plan`` as it was before the large-M mode: (T, bytes), or None
+    where nothing fitted."""
+    from cubicsdr_tpu_torch.ops.kernels.pfb import (
+        _SMEM_TWO_PER_SM, SMEM_MAX, pfb_form)
+    D = M // 2
+    fits = []
+    for T in (128, 64, 32):
+        win = ((T + 2 * J - 1) * D + 3) // 4 * 4
+        f = 2 * M * M if pfb_form(M, J) == "product" else 0
+        nbytes = 4 * (4 * win + 2 * T * (M + 1) + f + M * J)
+        if nbytes <= _SMEM_TWO_PER_SM:
+            return T, nbytes
+        if nbytes <= SMEM_MAX:
+            fits.append((T, nbytes))
+    return fits[0] if fits else None
+
+
+def test_plans_that_fitted_are_unchanged():
+    """Every (M, J) that had a plan keeps it, with two staged windows and
+    F whole; from M = 134 (J = 8) on, nothing fitted before."""
+    from cubicsdr_tpu_torch.ops.kernels.pfb import pfb_plan
+    for J in (8, 12):
+        for M in range(2, 402, 2):
+            before = _plan_before(M, J)
+            if before is not None:
+                assert pfb_plan(M, J) == (*before, 2, M), (M, J)
+            elif J == 8:
+                assert M >= 134, M
+    assert _plan_before(132, 8) is not None
+    assert _plan_before(134, 8) is None
+
+
+def test_plan_fits_every_source_rate_up_to_200_msps():
+    """Every even M up to 400, so the channel count of every source rate up
+    to 200 MS/s, gets a plan within the 227 KB an sm_90 block may hold:
+    from M = 134 on, one staged window and F tiled in blocks of KB output
+    channels (a multiple of 4, or F whole at 134-140)."""
+    from cubicsdr_tpu_torch.io.sources import optimal_channel_count
+    from cubicsdr_tpu_torch.ops.kernels.pfb import SMEM_MAX, pfb_plan
+    ms = {optimal_channel_count(fs)
+          for fs in range(500_000, 200_000_001, 500_000)}
+    assert max(ms) <= 400 and {140, 246} <= ms
+    for M in sorted(ms | set(range(134, 401, 2))):
+        T, nbytes, stages, kb = pfb_plan(M, 8)
+        assert T in (32, 64, 128) and nbytes <= SMEM_MAX
+        if M >= 134:
+            assert stages == 1 and (kb == M or kb % 4 == 0) and kb >= 4
+    assert pfb_plan(134, 8) == (32, 207712, 1, 134)
+    assert pfb_plan(140, 8) == (32, 223712, 1, 140)
+    assert pfb_plan(246, 8) == (32, 227584, 1, 56)
+    assert pfb_plan(400, 8) == (32, 229056, 1, 12)

@@ -122,7 +122,7 @@ def _kernel_order(rs, z, chan_idx, omega, phase_w0):
     xm_re = torch.nn.functional.pad(xm_re, (0, pad))
     xm_im = torch.nn.functional.pad(xm_im, (0, pad))
     N = len(chan_idx)
-    _, RS, CQ, _, _ = route_plan(P, Q, O, KK, A)
+    _, RS, CQ, _, _, _ = route_plan(P, Q, O, KK, A)
     groups = []
     for k in range(RS):
         acc_re = torch.zeros((N, n_rows, P, Ob))
@@ -255,9 +255,10 @@ def test_route_plan_fits_every_fused_group(modem, bandwidth):
                 continue
             rs = fe._stage1
             kp, _ = route_taps(rs.ker_np, rs.Q)
-            tb, groups, cq, keep_e, nbytes = route_plan(
+            tb, groups, cq, keep_e, nbytes, stream = route_plan(
                 rs.P, rs.Q, fe.tile, rs.KK, kp.shape[-1])
             assert nbytes <= SMEM_MAX and 1 <= groups <= cq <= rs.Q
+            assert not stream
             threads = tb * groups * rs.P * -(-fe.tile // rs.P // 8)
             assert keep_e
             if rs.Q <= 5:
@@ -277,3 +278,129 @@ def test_route_plan_fits_every_fused_group(modem, bandwidth):
     if (modem, bandwidth) in expect:
         want = expect[(modem, bandwidth)]
         assert want <= fused if want else not fused, fused
+
+
+# Every plan ``route_plan`` gave before the streaming mode existed, as it
+# gave it: (TB, RS, CQ, keep_e, bytes) for each stage (P, Q, O) of the
+# tests above and of chip_smoke.py.
+_RESIDENT_PLANS = {
+    (1, 5, 128): (8, 1, 5, True, 104320), (2, 5, 256): (4, 1, 5, True, 53280),
+    (1, 4, 128): (8, 1, 4, True, 83456), (3, 5, 384): (2, 1, 5, True, 29312),
+    (6, 25, 768): (1, 1, 25, True, 87840),
+    (1, 40, 128): (1, 16, 40, True, 157792),
+    (1, 64, 128): (1, 16, 49, True, 231568),
+    (1, 50, 128): (1, 16, 50, True, 197232),
+    (3, 50, 384): (1, 5, 50, True, 179232),
+    (5, 16, 640): (1, 1, 16, True, 56192),
+    (3, 25, 384): (2, 1, 25, True, 146432),
+    (1, 25, 128): (3, 5, 25, True, 219440),
+    (1, 20, 128): (4, 4, 20, True, 223872),
+    (1, 32, 128): (2, 8, 32, True, 203552),
+    (5, 8, 640): (1, 1, 8, True, 28128), (1, 2, 128): (8, 1, 2, True, 41744),
+    (1, 128, 128): (1, 16, 44, False, 231264),
+    (2, 3, 384): (2, 1, 3, True, 26128)}
+
+
+def _plan_of(P, Q, O):
+    from cubicsdr_tpu_torch.ops.kernels.route import route_plan, route_taps
+    rs = RationalResampler(P, Q)
+    kp, _ = route_taps(rs.ker_np, Q)
+    return rs, route_plan(P, Q, O, rs.KK, kp.shape[-1])
+
+
+def test_resident_plans_are_unchanged():
+    """Every plan that fitted before the streaming mode is still the plan,
+    field for field, with the window resident."""
+    for (P, Q, O), want in _RESIDENT_PLANS.items():
+        assert _plan_of(P, Q, O)[1] == (*want, False), (P, Q, O)
+
+
+# The stages that no resident plan fits (the RTL-SDR's 1.024, 1.4 and
+# 2.56 MS/s, and the digital modems at 30.72 MS/s), with the channel
+# length the pipeline gives them and their exact streaming plan
+# (TB, RS, CQ, keep_e, bytes, stream).
+_STREAMING = {
+    (3, 307, 384): (196480, (1, 5, 166, False, 231072, True)),
+    (1, 467, 128): (59776, (1, 16, 154, False, 231616, True)),
+    (2, 467, 256): (59776, (1, 8, 163, False, 232112, True)),
+    (2, 3413, 256): (436864, (1, 8, 163, False, 232112, True)),
+    (4, 317, 512): (40576, (1, 4, 170, False, 231200, True)),
+}
+
+
+@pytest.mark.parametrize("P,Q,O", list(_STREAMING))
+def test_streaming_plan_for_wide_windows(P, Q, O):
+    """Where one tile's window (41,751-477,819 floats per plane) cannot be
+    resident, the plan streams it: one tile per batch, E computed per
+    pass, CQ residue rows and their taps per pass, within the 227 KB an
+    sm_90 block may hold; the tile is still the reference's."""
+    from cubicsdr_tpu_torch.ops.kernels.route import SMEM_MAX
+    chan_len, want = _STREAMING[(P, Q, O)]
+    assert choose_fused_tile(chan_len // Q * P, P, Q) == O
+    rs, plan = _plan_of(P, Q, O)
+    assert (O // P - 1) * Q + rs.KK > SMEM_MAX // 8
+    assert plan == want
+    tb, groups, cq, _, nbytes, stream = plan
+    assert stream and tb == 1 and nbytes <= SMEM_MAX
+    assert 1 <= groups <= cq <= Q
+
+
+def _direct(rs, z, chan_idx, omega, phase_w0, O):
+    """The routed resample straight from its definition, without the tile
+    matrix: y[lb*P + r] = sum_t ker[r, t] * xm[lb*Q + KK-1-t] over each
+    modulated window, then the tile rotation (for the stage whose tile
+    matrix would take 489 MB)."""
+    from cubicsdr_tpu_torch.ops.kernels.route import _tables
+    from cubicsdr_tpu_torch.ops.resample import _windows
+    P, Q, KK = rs.P, rs.Q, rs.KK
+    Lc = z.shape[-1] - rs.hist_len
+    Ob, S = O // P, (O // P) * Q
+    W = (Ob - 1) * Q + KK
+    start = rs.hist_len + Q - 1 - (KK - 1)
+    n_rows = Lc // Q * P // O
+    e_re, e_im, a1, a64 = _tables(torch.from_numpy(omega), W, S)
+    idx = torch.from_numpy(chan_idx).long()
+    w_re = _windows(torch.from_numpy(z[0]), start, n_rows, S, W)[idx]
+    w_im = _windows(torch.from_numpy(z[1]), start, n_rows, S, W)[idx]
+    xm_re = w_re * e_re[:, None] - w_im * e_im[:, None]
+    xm_im = w_im * e_re[:, None] + w_re * e_im[:, None]
+    k = torch.from_numpy(rs.ker_np[:, ::-1].copy())            # [P, KK]
+    y_re = torch.einsum("nglk,pk->nglp", xm_re.unfold(-1, KK, Q), k)
+    y_im = torch.einsum("nglk,pk->nglp", xm_im.unfold(-1, KK, Q), k)
+    g = torch.arange(n_rows)
+    phi = torch.remainder(
+        torch.from_numpy(phase_w0)[:, None]
+        + a64[:, None] * torch.div(g, 64, rounding_mode="floor").float()
+        + a1[:, None] * (g % 64).float(), 6.283185307179586)
+    c_, s_ = torch.cos(phi)[..., None, None], torch.sin(phi)[..., None, None]
+    N = len(chan_idx)
+    return ((y_re * c_ - y_im * s_).reshape(N, -1).numpy(),
+            (y_im * c_ + y_re * s_).reshape(N, -1).numpy())
+
+
+@pytest.mark.parametrize("P,Q,O", list(_STREAMING))
+def test_streaming_layout_matches_plain(rng, P, Q, O):
+    """The streaming plan's arithmetic in the kernel's order (residue
+    group k sums its residues of each pass of CQ rows, tap by tap; the
+    groups' sums added in group order) equals the plain version over two
+    tiles of 2 demods on 3 channels (the 2/3413 stage against the direct
+    definition: its tile matrix would take 489 MB), atol 5e-5."""
+    M, N = 3, 2
+    rs = RationalResampler(P, Q, batch_shape=(N,))
+    Lc = 2 * O // P * Q
+    z = rng.standard_normal((2, M, rs.hist_len + Lc)).astype(np.float32)
+    ci = np.array([2, 0], np.int32)
+    omega = rng.uniform(-1.5, 1.5, N).astype(np.float32)
+    pw0 = rng.uniform(0, 6.28, N).astype(np.float32)
+    assert choose_fused_tile(Lc // Q * P, P, Q) == O
+    kr, ki = _kernel_order(rs, z, ci, omega, pw0)
+    if Q == 3413:
+        yr, yi = _direct(rs, z, ci, omega, pw0, O)
+    else:
+        yr, yi = _port(rs, z, ci, omega, pw0)
+        dr, di = _direct(rs, z, ci, omega, pw0, O)
+        np.testing.assert_allclose(dr, yr, atol=5e-5)
+        np.testing.assert_allclose(di, yi, atol=5e-5)
+    assert kr.shape == yr.shape == (N, 2 * O)
+    np.testing.assert_allclose(kr, yr, atol=5e-5)
+    np.testing.assert_allclose(ki, yi, atol=5e-5)
