@@ -111,13 +111,46 @@ Phases, each printing one line:
 19. ``multihost`` with 2 worker processes on the one card (time=2; NCCL
    takes one rank per GPU, so the phase asks for host collectives: gloo
    on host copies), scan58, each rank verified against the unsharded
-   pipeline it computes, and a timed phase, bound by those copies.
+   pipeline it computes, and a timed phase, bound by those copies;
+20. the complex64 pipeline (``dtype=torch.complex64``, whose default
+   ``use_kernels=None`` resolves to no kernel, as the JAX package's
+   complex64 path runs no Pallas kernel) on the card at demod16 and at
+   scan58 (its planar block, 2,048,000 samples), 3 blocks each: against
+   the same complex64 pipeline on the CPU at the main path's gates,
+   against the planar card pipeline with both kernels at
+   tests/test_unified_pipeline.py's gates (audio and mix atol 2e-3 /
+   rtol 2e-3, level 0.1; CW, whose audio follows the carrier phase that
+   the complex64 path's float32 ramp rounds, by each row's rms within
+   1e-3 and magnitude spectrum within 1e-2 (relative), with the carrier
+   rotation between the two steps' iq taps recorded, and the same step
+   with its CW beep offset by 0.5% shown to fail that gate in every
+   block), a tone above 40 dB through FM, NBFM and AM,
+   zero PFB and route launches where the planar run shows its own (3 + 3
+   for demod16, 3 + 18 for scan58), ``use_kernels=True`` refused; then
+   the planar and complex64 steps' MS/s at both widths, in turns
+   (planar, complex64, complex64, planar);
+21. complex64 in the 'pfbch' and 'single' channel modes on the coverage
+   plans (every modem scan58 does not run), 2 blocks each, against the
+   CPU, with no kernel launch;
+22. the live loop around the complex64 demod16 pipeline (float32 ring
+   assembled as complex64 in the step, 6 blocks, two recording demods, a
+   subset sink, the demod view, the zoom view at +1 MHz / 1 MHz, a
+   1024-point waterfall) against the same loop on the CPU, no kernel
+   launch and no ring drop; then a planar card loop swapped mid-stream
+   to the complex64 plan and back: every block reaches each step in that
+   step's representation, the kernels launch on the planar blocks only,
+   no block is dropped;
+23. ``parallel.dryrun.dryrun_multichip(1, "cuda")`` (one NCCL rank: a
+   mixed FM + AM + BPSK sharded step with the reference's shape checks)
+   and ``parallel.scaling.measure_scaling`` over 1 rank (NCCL) and 2
+   ranks sharing the card (host collectives, gloo on host copies), with
+   the rows printed.
 
-Then (20) one JSON line describing the kernels (launches on the demod16
+Then (24) one JSON line describing the kernels (launches on the demod16
 main path and on every other path, the CLI's, serve's, the sharded and
-the multihost ranks' included, error, cold/warm/plain ms, bound,
-roofline share, every case; no single PyTorch call computes either
-function, so ``library_ms`` is null),
+the multihost ranks' and the complex64 paths' (zero) included, error,
+cold/warm/plain ms, bound, roofline share, every case; no single
+PyTorch call computes either function, so ``library_ms`` is null),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 and no result line is printed. There is no CPU fallback: without a CUDA
@@ -386,13 +419,26 @@ def tone_snr(audio: np.ndarray, f0: float, fs: float) -> float:
                                / max(spec[noise].sum(), 1e-30)))
 
 
+def as_input(rx, blk):
+    """Planes [2, L] as the pipeline's representation: a PC (planar) or
+    one complex64 tensor."""
+    from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
+    if rx.dtype == PLANAR:
+        return PC(blk[0].contiguous(), blk[1].contiguous())
+    return torch.complex(blk[0], blk[1])
+
+
+def planes(x):
+    """(re, im) of a PC or a complex tensor."""
+    return (x.re, x.im) if hasattr(x, "re") else (x.real, x.imag)
+
+
 def run_blocks(rx, blocks, controls):
     """Outputs of each block and the state each block started from."""
-    from cubicsdr_tpu_torch.ops.planar import PC
     st, outs, befores = rx.init_state(), [], []
     for blk in blocks:
         befores.append(st)
-        st, out = rx.apply(st, (PC(blk[0], blk[1]), controls))
+        st, out = rx.apply(st, (as_input(rx, blk), controls))
         outs.append(out)
     return outs, befores
 
@@ -457,10 +503,9 @@ def timed_steps(rx, blocks, controls, n_blocks: int, n_warm: int = 3):
     """Msamples/s and ms per block of ``rx``'s step on device-resident IQ
     (``blocks``, cycled) and controls, over ``n_blocks`` blocks after
     ``n_warm`` warm-up blocks."""
-    from cubicsdr_tpu_torch.ops.planar import PC
     controls = [{k: torch.as_tensor(v, device=rx.device)
                  for k, v in c.items()} for c in controls]
-    blocks = [PC(b[0].contiguous(), b[1].contiguous()) for b in blocks]
+    blocks = [as_input(rx, b) for b in blocks]
     st = rx.init_state()
     for b in range(n_warm):
         st, out = rx.apply(st, (blocks[b % len(blocks)], controls))
@@ -696,8 +741,7 @@ def compare_groups(rx_cpu, outs, outs_cpu, befores_cpu, worst) -> None:
             if set(g) != set(gr):
                 raise AssertionError(f"group {gi} outputs {sorted(g)} vs "
                                      f"CPU {sorted(gr)}")
-            for p, q in ((g["iq"].re, gr["iq"].re),
-                         (g["iq"].im, gr["iq"].im)):
+            for p, q in zip(planes(g["iq"]), planes(gr["iq"])):
                 p, q = p.cpu().numpy(), q.numpy()
                 np.testing.assert_allclose(p, q, atol=3e-4, rtol=1e-3)
                 fold("iq_err", float(np.abs(p - q).max()))
@@ -1320,6 +1364,350 @@ def check_multihost(smi: str):
                              "gather leaves the card for gloo",
                      "card": smi}
 
+C64 = torch.complex64
+UNIFIED_ATOL = 2e-3     # planar vs complex64 (tests/test_unified_pipeline.py)
+# CW audio, complex64 vs planar step: each row's rms and its magnitude
+# spectrum, relative. Sound runs on an NVIDIA H100 80GB HBM3 (700 W) read
+# 1.8e-5 and 2.2e-3 (the float32 ramp's carrier phase); the CW beep offset
+# by 0.5%, planted in every run (``planted_cw_pitch``), must read above
+# the spectrum limit.
+CW_RMS_LIMIT = 1e-3
+CW_SPECTRUM_LIMIT = 1e-2
+CW_PITCH_FAULT = 1.005
+
+
+def phase_audio_distance(got, want) -> tuple[float, float]:
+    """The largest row's rms difference (relative) and magnitude-spectrum
+    distance between two audio tensors [..., C, L]."""
+    from cubicsdr_tpu_torch.parallel.multihost import _spectrum_distance
+    got, want = (x.cpu().numpy().astype(np.float64) for x in (got, want))
+    p, q = (np.sqrt(np.mean(x * x, axis=(-2, -1))) for x in (got, want))
+    e = float(np.max(np.abs(p - q) / np.maximum(q, 1e-9)))
+    return e, float(np.max(_spectrum_distance(got, want)))
+
+
+def complex_vs_planar(rx, outs_c, outs_p, worst) -> None:
+    """The complex64 step against the planar step with both kernels, at
+    tests/test_unified_pipeline.py's gates: mix and analog audio atol
+    2e-3 / rtol 2e-3, every group's level atol 0.1. CW audio follows the
+    carrier's phase, and the complex64 path's float32 ramp rounds
+    omega*k to half an ulp (up to 0.0078 rad at k = 256,000, omega =
+    0.94) where the route kernel builds its phase from pre-wrapped
+    increments: its rows are held by rms (CW_RMS_LIMIT) and magnitude
+    spectrum (CW_SPECTRUM_LIMIT), and the rotation between the two
+    steps' iq taps is recorded (``carrier_rotation_rad``)."""
+    def fold(k, v):
+        worst[k] = max(worst.get(k, 0.0), v)
+
+    for oc, op in zip(outs_c, outs_p):
+        pairs = [("mix", oc["mix"], op["mix"])]
+        for gi, (gc, gp) in enumerate(zip(oc["groups"], op["groups"])):
+            lv = float((gc["level"] - gp["level"]).abs().max())
+            if not lv <= 0.1:
+                raise AssertionError(f"group {gi} level vs planar: {lv}")
+            fold("level_err", lv)
+            if "audio" not in gp:
+                continue
+            if rx.groups[gi].modem_name != "CW":
+                pairs.append((f"group {gi} audio", gc["audio"],
+                              gp["audio"]))
+                continue
+            yc = gc["iq"].cpu().numpy()
+            yp = gp["iq"]
+            yp = (yp.re + 1j * yp.im).cpu().numpy()
+            rot = np.angle((yc * np.conj(yp)).sum(axis=-1))
+            fold("carrier_rotation_rad", float(np.abs(rot).max()))
+            e, d = phase_audio_distance(gc["audio"], gp["audio"])
+            if e > CW_RMS_LIMIT or d > CW_SPECTRUM_LIMIT:
+                raise AssertionError(f"group {gi} CW audio vs planar: rms "
+                                     f"{e}, spectrum {d}")
+            fold("cw_audio_rms_rel", e)
+            fold("cw_audio_spectrum_rel", d)
+        for what, a, b in pairs:
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(a, b, atol=UNIFIED_ATOL,
+                                       rtol=UNIFIED_ATOL, err_msg=what)
+            if a.size:
+                fold("audio_err", float(np.abs(a - b).max()))
+
+
+def planted_cw_pitch(plan, scan_block, blocks, ctl, outs_p) -> dict:
+    """scan58's complex64 step with its CW beep offset by CW_PITCH_FAULT
+    against the planar step: every block must fail the CW gate."""
+    from dataclasses import replace
+    cw = [gi for gi, s in enumerate(plan.specs) if s.modem_name == "CW"]
+    specs = list(plan.specs)
+    for gi in cw:
+        specs[gi] = replace(specs[gi], settings=(
+            ("offset", 650.0 * CW_PITCH_FAULT),))
+    rx = replace(plan, specs=tuple(specs)).pipeline(block_len=scan_block,
+                                                    dtype=C64)
+    outs, _ = run_blocks(rx, blocks, ctl)
+    reads = [phase_audio_distance(o["groups"][gi]["audio"],
+                                  p["groups"][gi]["audio"])
+             for o, p in zip(outs, outs_p) for gi in cw]
+    least = min(d for _, d in reads)
+    if not least > CW_SPECTRUM_LIMIT:
+        raise AssertionError(f"CW beep x{CW_PITCH_FAULT} passes the gate: "
+                             f"spectrum {least}")
+    return {"pitch_ratio": CW_PITCH_FAULT,
+            "min_spectrum_rel": least,
+            "min_rms_rel": min(e for e, _ in reads)}
+
+
+def complex_widths():
+    """(name, pipeline factory, blocks on the card, controls, tone rows)
+    for demod16 and scan58 (a factory takes the pipeline's keywords),
+    scan58's plan and its block length."""
+    from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+    from cubicsdr_tpu_torch.utils.synth import demod_freqs, scan58, synth_fm
+    freqs = demod_freqs(16, spread=15)
+    iq = synth_fm(freqs[:15], 3 * BLOCK, FS, "cuda", seed=1)
+    d16_blocks = [iq[:, b * BLOCK:(b + 1) * BLOCK].contiguous()
+                  for b in range(3)]
+
+    def d16(**kw):
+        return ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)],
+                                block_len=BLOCK, **kw)
+
+    plan = scan58()
+    scan_block = plan.pipeline(device="cpu").block_len
+
+    def s58(**kw):
+        return plan.pipeline(block_len=scan_block, **kw)
+
+    ctl16 = d16(device="cpu").control_template()
+    ctl16[0]["frequency"] = freqs
+    widths = [("demod16", d16, d16_blocks, ctl16,
+               [(0, k, 700.0 + 90.0 * k) for k in range(15)]),
+              ("scan58", s58, plan_blocks(plan, 3, scan_block, 11),
+               plan.controls(s58(device="cpu")),
+               [(0, 0, 700.0), (1, 0, 1000.0), (2, 0, 400.0)])]
+    return widths, plan, scan_block
+
+
+def check_complex64(smi: str):
+    """Phase 20. Returns (complex64 launches by width, summary, rate
+    rows)."""
+    from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+    try:
+        ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)], dtype=C64,
+                         use_kernels=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("use_kernels=True with complex64 ran")
+    launches, summary, rows = {}, {}, []
+    widths, plan, scan_block = complex_widths()
+    for name, make, blocks, ctl, tones in widths:
+        rx_c = make(dtype=C64)
+        if (rx_c.use_kernels or any(rx_c.fused_route)
+                or rx_c.device.type != "cuda"):
+            raise AssertionError(f"{name} complex64 default: kernels "
+                                 f"{rx_c.use_kernels}, fused "
+                                 f"{rx_c.fused_route}, {rx_c.device}")
+        rx_p = make()
+        reset_launches()
+        outs_c, _ = run_blocks(rx_c, blocks, ctl)
+        launches[name] = read_launches()
+        reset_launches()
+        outs_p, _ = run_blocks(rx_p, blocks, ctl)
+        planar_launches = read_launches()
+        if min(planar_launches.values()) < 3 or any(launches[name].values()):
+            raise AssertionError(f"{name} launches: complex64 "
+                                 f"{launches[name]}, planar "
+                                 f"{planar_launches}")
+        rx_cpu = make(dtype=C64, device="cpu")
+        outs_cpu, befores = run_blocks(rx_cpu, [b.cpu() for b in blocks],
+                                       ctl)
+        w_cpu, w_planar = {}, {}
+        compare_groups(rx_cpu, outs_c, outs_cpu, befores, w_cpu)
+        complex_vs_planar(rx_c, outs_c, outs_p, w_planar)
+        if name == "scan58":
+            w_planar["planted_cw_pitch"] = planted_cw_pitch(
+                plan, scan_block, blocks, ctl, outs_p)
+        for gi, row, f0 in tones:
+            a = np.concatenate([o["groups"][gi]["audio"][row, 0].cpu()
+                                .numpy() for o in outs_c[1:]])
+            snr = tone_snr(a, f0, rx_c.audio_rate)
+            if not snr > 40:
+                raise AssertionError(f"{name} complex64 group {gi} row "
+                                     f"{row}: tone SNR {snr:.1f} dB")
+            w_cpu["min_tone_snr_db"] = min(w_cpu.get("min_tone_snr_db",
+                                                     1e9), snr)
+        summary[name] = {"block_len": rx_c.block_len,
+                         "launches_complex64": launches[name],
+                         "launches_planar": planar_launches,
+                         "vs_cpu": w_cpu, "vs_planar_kernels": w_planar}
+        rates = {}
+        for turn in ("planar", "complex64", "complex64", "planar"):
+            rx = rx_p if turn == "planar" else rx_c
+            rates.setdefault(turn, []).append(
+                timed_steps(rx, blocks[:2], ctl, 10))
+        rows.append({"row": f"{name}_complex64_vs_planar",
+                     "block_len": rx_c.block_len,
+                     **{f"{k}_msamples_per_s": [r[0] for r in v]
+                        for k, v in rates.items()},
+                     **{f"{k}_ms_per_block": [r[1] for r in v]
+                        for k, v in rates.items()}, "card": smi})
+        del rx_c, rx_p, rx_cpu, outs_c, outs_p, outs_cpu, befores
+    return launches, summary, rows
+
+
+def check_complex_modes():
+    """Phase 21: complex64 in 'pfbch' and 'single' on the coverage plans,
+    2 blocks each, against the CPU; no kernel launch."""
+    from cubicsdr_tpu_torch.utils.synth import coverage_plans
+    total, worst, rows = {}, {}, []
+    for i, plan in enumerate(coverage_plans()):
+        for mode in ("pfbch", "single"):
+            rx = plan.pipeline(dtype=C64, chan_mode=mode)
+            rx_cpu = plan.pipeline(dtype=C64, chan_mode=mode, device="cpu")
+            blocks = plan_blocks(plan, 2, rx.block_len, 30 + i)
+            reset_launches()
+            outs, _ = run_blocks(rx, blocks, plan.controls(rx))
+            launches = read_launches()
+            outs_cpu, befores = run_blocks(
+                rx_cpu, [b.cpu() for b in blocks], plan.controls(rx_cpu))
+            w = {}
+            compare_groups(rx_cpu, outs, outs_cpu, befores, w)
+            for k, v in w.items():
+                worst[k] = (worst.get(k, 0) + v if k.startswith("symbol")
+                            else max(worst.get(k, 0.0), v))
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            rows.append({"plan": plan.name, "mode": mode,
+                         "block_len": rx.block_len, "M": rx.M})
+    if any(total.values()):
+        raise AssertionError(f"complex64 modes launched kernels: {total}")
+    return total, worst, rows
+
+
+def check_live_complex():
+    """Phase 22. Returns (launches of the complex64 live run, of the
+    planar blocks of the swap run, summary)."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.ops.planar import PC
+    from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+    from cubicsdr_tpu_torch.utils.synth import demod_freqs, synth_fm
+    freqs = demod_freqs(16, spread=15)
+    iq = synth_fm(freqs[:15], LIVE_BLOCKS * BLOCK, FS, "cuda", seed=3)
+    iq = iq.cpu().numpy()
+    blocks = [np.ascontiguousarray(iq[:, b * BLOCK:(b + 1) * BLOCK])
+              for b in range(LIVE_BLOCKS)]
+
+    def pipe(**kw):
+        return ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)],
+                                block_len=BLOCK, **kw)
+
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for name, dev in (("card", "cuda"), ("cpu", "cpu")):
+            d = Path(tmp) / name
+            d.mkdir()
+            lr, mixes, lines = run_live(pipe(dtype=C64, device=dev), freqs,
+                                        blocks, d, views=True)
+            if lr.planar or lr.zoom.planar:
+                raise AssertionError("complex64 live loop is planar")
+            reset_launches()
+            n = drive_live(lr)
+            launches = read_launches() if name == "card" else None
+            lr.stop()
+            if n != LIVE_BLOCKS:
+                raise AssertionError(f"{name} complex64 live: {n} blocks")
+            runs[name] = dict(lr=lr, mixes=mixes, lines=lines, l=launches,
+                              wavs={f: read_pcm16(d / f"{f}.wav")
+                                    for f in ("rec_demod0", "rec_demod5",
+                                              "sub")})
+        g, c = runs["card"], runs["cpu"]
+        if any(g["l"].values()):
+            raise AssertionError(f"complex64 live launches {g['l']}")
+        drops = (g["lr"].ring.dropped_samples,
+                 g["lr"].metrics.snapshot()["ingest"]["dropped"])
+        if drops != (0, 0):
+            raise AssertionError(f"complex64 live ring drops {drops}")
+        worst = {"rms": 0.0, "q995": 0.0}
+        for f in g["wavs"]:
+            e = audio_close(g["wavs"][f], c["wavs"][f], f"c64 wav {f}")
+            worst = {k: max(worst[k], e[k]) for k in worst}
+        for i, (a, b) in enumerate(zip(g["mixes"], c["mixes"])):
+            e = audio_close(a, b, f"c64 live mix block {i}")
+            worst = {k: max(worst[k], e[k]) for k in worst}
+        if g["lines"] != c["lines"]:
+            raise AssertionError(f"c64 waterfall lines {g['lines']} vs "
+                                 f"{c['lines']}")
+        total = sum(g["lines"])
+        errs = {}
+        for what, (a, b) in {
+                "waterfall": [r["lr"].waterfall.buffer[-(total - 2):]
+                              for r in (g, c)],
+                "zoom": [r["lr"].zoom.points for r in (g, c)],
+                "demod_view": [r["lr"].demod_spectrum for r in (g, c)]
+        }.items():
+            np.testing.assert_allclose(a, b, atol=WF_ATOL, err_msg=what)
+            ok = np.isfinite(a)
+            errs[what] = float(np.abs(a[ok] - b[ok]).max())
+        summary["complex64_live"] = {"audio": worst, "points_err": errs,
+                                     "waterfall_lines": g["lines"]}
+
+        # A planar card loop swapped to the complex64 plan mid-stream and
+        # back: each step sees only its own representation.
+        rx_p, rx_c = pipe(), pipe(dtype=C64)
+        seen = []
+        for rx in (rx_p, rx_c):
+            def apply(st, inputs, rx=rx, orig=rx.apply):
+                seen.append((rx is rx_c, isinstance(inputs[0], PC)))
+                return orig(st, inputs)
+            rx.apply = apply
+        ctl = rx_p.control_template()
+        ctl[0]["frequency"] = freqs
+        lr = LiveReceiver(rx_p, ctl, iter(blocks), waterfall_fft=1024,
+                          waterfall_lines=64)
+        lr.set_zoom(1e6, 1e6)
+        lr.start_producer()
+        reset_launches()
+        n = lr.run_blocks(max_blocks=2)
+        lr.swap_pipeline(rx_c, ctl)
+        n += lr.run_blocks(max_blocks=2)
+        lr.swap_pipeline(rx_p, ctl)
+        n += lr.run_blocks()
+        swap_launches = read_launches()
+        lr.stop()
+        want = [(False, True)] * 2 + [(True, False)] * 2 + [(False, True)] * 2
+        snap = lr.metrics.snapshot()
+        if (n != LIVE_BLOCKS or seen != want
+                or snap["pipeline"]["dropped"] or lr.ring.dropped_samples):
+            raise AssertionError(f"swap run: {n} blocks, steps saw {seen}, "
+                                 f"{snap['pipeline']}, ring drops "
+                                 f"{lr.ring.dropped_samples}")
+        if swap_launches != {
+                "pfbch2_planar": 4, "routed_shifted_resample": 4}:
+            raise AssertionError(f"swap run launches {swap_launches}")
+        summary["swap"] = {"blocks": n, "planar_blocks": 4,
+                           "complex64_blocks": 2,
+                           "launches": swap_launches, "ring_dropped": 0}
+    return g["l"], swap_launches, summary
+
+
+def check_scaling(smi: str):
+    """Phase 23: the dry run on one NCCL rank, then the weak-scaling rows
+    over 1 rank (NCCL) and 2 ranks sharing the card (host collectives)."""
+    from cubicsdr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cubicsdr_tpu_torch.parallel.scaling import measure_scaling
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, "cuda")
+    t1 = time.perf_counter()
+    rep = measure_scaling(device_counts=[1, 2], device="cuda",
+                          host_collectives=True)
+    t2 = time.perf_counter()
+    if dry["backend"] != "nccl" or rep["rows"][0]["backend"] != "nccl" \
+            or not all(r["msps"] > 0 for r in rep["rows"]):
+        raise AssertionError(f"dry run {dry}, scaling {rep}")
+    return dry, {**rep, "dryrun_wall_s": t1 - t0, "scaling_wall_s": t2 - t1,
+                 "card": smi}
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1470,6 +1858,23 @@ def main() -> int:
          f"{json.dumps([r['worst'] for r in mh_reports])} [{smi}]")
     line(json.dumps(mh_row))
 
+    c64_launches, c64, c64_rows = check_complex64(smi)
+    for name, r in c64.items():
+        line(f"complex64 {name} x3 blocks (no kernel): {json.dumps(r)} "
+             f"[{smi}]")
+    for r in c64_rows:
+        line(json.dumps(r))
+    modes_launches, modes, mode_rows = check_complex_modes()
+    line(f"complex64 'pfbch'/'single' on the coverage plans "
+         f"{json.dumps(mode_rows)}: launches {modes_launches}, vs CPU "
+         f"{json.dumps(modes)} [{smi}]")
+    live_c64_launches, swap_launches, live_c64 = check_live_complex()
+    line(f"live loop complex64 demod16 x{LIVE_BLOCKS} blocks and the "
+         f"planar<->complex64 swap: {json.dumps(live_c64)} [{smi}]")
+    dry, scaling = check_scaling(smi)
+    line(f"dryrun_multichip(1, 'cuda'): {json.dumps(dry)} [{smi}]")
+    line(json.dumps(scaling))
+
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
         return {"name": name, "route": "cuda", "source": source,
@@ -1486,7 +1891,13 @@ def main() -> int:
                        for k, r in wide_rows.items()},
                     "sharded_1x1_scan58": sharded_launches[name],
                     "multihost_rank0_scan58":
-                        mh_reports[0]["launches"][name]},
+                        mh_reports[0]["launches"][name],
+                    **{f"complex64_{k}": v[name]
+                       for k, v in c64_launches.items()},
+                    "complex64_pfbch_single_modes": modes_launches.get(
+                        name, 0),
+                    "complex64_live16": live_c64_launches[name],
+                    "live16_planar_complex64_swap": swap_launches[name]},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

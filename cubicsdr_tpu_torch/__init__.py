@@ -8,15 +8,17 @@ contract ``apply(state, x) -> (state, y)``; their constant taps, DFT and
 Toeplitz matrices are registered buffers, so ``.to(device)`` moves them.
 
 Ported so far: the receive step (``receiver.pipeline.ReceiverPipeline``
-with ``dtype=PLANAR`` in every channelizer mode, 'pfbch2', 'pfbch' and
-'single') with the whole modem bank, analog and digital, the live loop
-(``app.runner``), and the app shell: the web control plane
-(``app.webview``), the CLI (``python -m cubicsdr_tpu_torch``), config,
-sessions, bookmarks, rig control and the IQ sources. Its two hot
-stages run hand-written CUDA kernels for Hopper
-(``csrc/pfb.cu``, ``csrc/route.cu``) when ``use_kernels=True`` and the data
-lies on a CUDA device; on CPU tensors the same wrappers run their plain
-PyTorch versions.
+with ``dtype=PLANAR`` or ``dtype=torch.complex64`` in every channelizer
+mode, 'pfbch2', 'pfbch' and 'single') with the whole modem bank, analog
+and digital, the live loop (``app.runner``), the app shell: the web
+control plane (``app.webview``), the CLI (``python -m
+cubicsdr_tpu_torch``), config, sessions, bookmarks, rig control and the
+IQ sources, and the sharded receiver with its scaling harness and dry
+run (``parallel``). Its two hot stages run hand-written CUDA kernels for
+Hopper (``csrc/pfb.cu``, ``csrc/route.cu``) on planar data when
+``use_kernels`` is on (the planar default) and the data lies on a CUDA
+device; on CPU tensors the same wrappers run their plain PyTorch
+versions. The complex64 path runs no kernel, as the JAX package's.
 
 This package never imports jax.
 """

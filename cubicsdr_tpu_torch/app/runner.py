@@ -28,9 +28,15 @@ Threads and CUDA:
   them while the step reads them. It dispatches block i, then finishes
   block i-1, whose packed pull synchronises on its own event first.
 
-The port is planar-only (``dtype=PLANAR`` pipelines). There is no CPU
-fallback: a CUDA pipeline runs every stage on the card; a CPU pipeline
-(the tests) runs the same code with plain host tensors.
+The loop runs a pipeline of either representation: planar
+(``dtype=PLANAR``) or complex64. The ring carries float32 planes for
+both; the step assembles them in the pipeline's representation, so a
+block staged before a planar<->complex swap reaches the new step in the
+new representation, and the visual chain (distributor, spectrum, zoom and
+demod views) follows the pipeline's. Raw cs16/cs8 ingest takes a planar
+pipeline. There is no CPU fallback: a CUDA pipeline runs every stage on
+the card; a CPU pipeline (the tests) runs the same code with plain host
+tensors.
 """
 
 from __future__ import annotations
@@ -45,11 +51,12 @@ import torch
 
 from cubicsdr_tpu_torch.io.recorder import RecordingSink, SquelchOption
 from cubicsdr_tpu_torch.native import SampleRing
-from cubicsdr_tpu_torch.ops.planar import PC
+from cubicsdr_tpu_torch.ops.planar import PC, PLANAR, as_pc, to_complex
 from cubicsdr_tpu_torch.utils.metrics import Metrics
 from cubicsdr_tpu_torch.utils.tree import tree_map
 from cubicsdr_tpu_torch.visual import (
-    FFTDataDistributor, PlanarSpectrumProcessor, Waterfall)
+    FFTDataDistributor, PlanarSpectrumProcessor, SpectrumProcessor,
+    Waterfall)
 
 # Pinned staging slots: one block computing, one staged, one being
 # filled, and one spare so a refill never waits on a copy in flight.
@@ -152,6 +159,8 @@ class LiveReceiver:
         # on the device (ref: src/sdr/SoapySDRThread.cpp:253-343 converts
         # on the host).
         self.ingest_dtype = np.dtype(ingest_dtype or np.float32)
+        self.planar = pipeline.dtype == PLANAR
+        self._check_ingest(pipeline)
         if ingest_scale is None:
             ingest_scale = {2: 1.0 / 32768.0, 1: 1.0 / 128.0}.get(
                 self.ingest_dtype.itemsize, 1.0)
@@ -180,9 +189,9 @@ class LiveReceiver:
 
         self.dist = FFTDataDistributor(
             waterfall_fft * 2, pipeline.sample_rate,
-            lines_per_second=waterfall_lps,
-            block_len=pipeline.block_len).to(self.device)
-        self.spec = PlanarSpectrumProcessor(waterfall_fft).to(self.device)
+            lines_per_second=waterfall_lps, block_len=pipeline.block_len,
+            dtype=pipeline.dtype).to(self.device)
+        self.spec = self._spec_cls()(waterfall_fft).to(self.device)
         self.waterfall = Waterfall(waterfall_fft, waterfall_lines)
         self._st_dist = self.dist.init_state()
         self._st_spec = self.spec.init_state()
@@ -328,11 +337,36 @@ class LiveReceiver:
         if was_running:
             self.start_producer()
 
+    def _check_ingest(self, pipeline):
+        if self.ingest_dtype != np.float32 and pipeline.dtype != PLANAR:
+            raise ValueError("raw-format (cs16/cs8) ingest needs a planar "
+                             "pipeline (dtype=PLANAR)")
+
+    def _spec_cls(self):
+        return PlanarSpectrumProcessor if self.planar else SpectrumProcessor
+
+    def _spec_core(self):
+        """The spectrum's EMA core (the planar processor wraps one)."""
+        return (self.spec.core
+                if isinstance(self.spec, PlanarSpectrumProcessor)
+                else self.spec)
+
     def _make_step(self, pipeline):
-        """The per-block step. For raw-format ingest the wire planes
-        convert to float32 on the device and the converted block replaces
-        the passthrough tap, so the visual chain sees float32."""
+        """The per-block step. The ring's float32 planes are assembled in
+        the pipeline's representation here, inside the step built for
+        that pipeline: a block staged before a planar<->complex swap
+        therefore reaches the new step in the new representation. For
+        raw-format ingest (planar pipelines) the wire planes convert to
+        float32 on the device and the converted block replaces the
+        passthrough tap, so the visual chain sees float32."""
         if self.ingest_dtype == np.float32:
+            if pipeline.dtype != PLANAR:
+                def step_complex(state, inputs):
+                    (re, im), controls = inputs
+                    return pipeline.apply(
+                        state, (torch.complex(re, im), controls))
+                return step_complex
+
             def step(state, inputs):
                 (re, im), controls = inputs
                 return pipeline.apply(state, (PC(re, im), controls))
@@ -384,6 +418,7 @@ class LiveReceiver:
         if pipeline.device != self.device:
             raise ValueError(f"pipeline is on {pipeline.device}, the "
                              f"receiver on {self.device}")
+        self._check_ingest(pipeline)
         format_changed = (
             pipeline.sample_rate != self.pipeline.sample_rate
             or pipeline.block_len != self.pipeline.block_len
@@ -397,9 +432,14 @@ class LiveReceiver:
             self.state = state
             if row_keys is not None:
                 self.row_keys = list(row_keys)
+            planar = pipeline.dtype == PLANAR
+            repr_changed = planar != self.planar
+            self.planar = planar
             # Flat indices (and group tap shapes) change with the plan:
             # drop the demod view atomically with the swap.
             self._set_demod_view_locked(None)
+            if repr_changed and not format_changed:
+                self._follow_repr_locked()
             if not format_changed:
                 return
             # Format change: ring, visual chain and post-step are used
@@ -410,11 +450,54 @@ class LiveReceiver:
             self.dist = FFTDataDistributor(
                 self.spec.fft_size * 2, pipeline.sample_rate,
                 lines_per_second=self.dist.lps,
-                block_len=pipeline.block_len).to(self.device)
+                block_len=pipeline.block_len,
+                dtype=pipeline.dtype).to(self.device)
+            if repr_changed:
+                self._respec()
             self._st_dist = self.dist.init_state()
             self._st_spec = self.spec.init_state()
             self._install_post()
             self.zoom = self._zoom_stash = None   # view rates changed
+
+    def _follow_repr_locked(self):
+        """The visual chain after a planar<->complex swap at an unchanged
+        format: distributor and spectrum (and an open zoom view) rebuilt in
+        the new representation, their display state carried (the same
+        shapes: the history converts between representations), so the
+        waterfall and the zoom view keep their continuity."""
+        hist, pos = self._st_dist
+        hist = as_pc(hist) if self.planar else to_complex(hist)
+        self.dist = FFTDataDistributor(
+            self.dist.fft_size, self.pipeline.sample_rate,
+            lines_per_second=self.dist.lps,
+            block_len=self.pipeline.block_len,
+            dtype=self.pipeline.dtype).to(self.device)
+        self._st_dist = (hist, pos)
+        self._respec()
+        self._zoom_stash = None
+        if self.zoom is not None:
+            old = self.zoom
+            z = self._new_zoom()
+            z.set_view(old.view_offset, old.view_bandwidth)
+            z.st_core = old.st_core
+            self.zoom = z
+        self._install_post()
+
+    def _respec(self):
+        """The spectrum processor of the current representation, with the
+        same size and display settings (its state's shapes are the
+        same)."""
+        core = self._spec_core()
+        self.spec = self._spec_cls()(
+            self.spec.fft_size, core.rate,
+            peak_hold=core.peak_hold).to(self.device)
+
+    def _new_zoom(self):
+        from cubicsdr_tpu_torch.visual.spectrum import ZoomSpectrumView
+        return ZoomSpectrumView(
+            self.pipeline.sample_rate, self.pipeline.block_len,
+            fft_size=self.spec.fft_size, device=self.device,
+            dtype=self.pipeline.dtype)
 
     # --- consumer: ring -> step -> sinks ---
     def _h2d(self, re: np.ndarray, im: np.ndarray):
@@ -545,17 +628,15 @@ class LiveReceiver:
             return
         if bandwidth and not (float(bandwidth) > 0.0):
             raise ValueError(f"zoom bandwidth must be > 0, got {bandwidth}")
-        from cubicsdr_tpu_torch.visual.spectrum import ZoomSpectrumView
         z = self.zoom
         if z is None and self._zoom_stash is not None \
                 and self._zoom_stash.input_rate == self.pipeline.sample_rate \
                 and self._zoom_stash.block_len == self.pipeline.block_len \
-                and self._zoom_stash.fft_size == self.spec.fft_size:
+                and self._zoom_stash.fft_size == self.spec.fft_size \
+                and self._zoom_stash.dtype == self.pipeline.dtype:
             z = self._zoom_stash
         if z is None:
-            z = ZoomSpectrumView(
-                self.pipeline.sample_rate, self.pipeline.block_len,
-                fft_size=self.spec.fft_size, device=self.device)
+            z = self._new_zoom()
         # Build the target level before attaching it: the consumer feeds
         # the view inside its locked dispatch.
         z.prewarm_level(float(bandwidth) or z.view_bandwidth)
@@ -581,15 +662,16 @@ class LiveReceiver:
                 self.dist = FFTDataDistributor(
                     self.spec.fft_size * 2, self.pipeline.sample_rate,
                     lines_per_second=float(lps),
-                    block_len=self.pipeline.block_len).to(self.device)
+                    block_len=self.pipeline.block_len,
+                    dtype=self.pipeline.dtype).to(self.device)
                 # Same state shapes (history + pacer phase): continuity.
                 rebuild = True
-            core = self.spec.core
+            core = self._spec_core()
             if ((fft_average_rate is not None
                  and float(fft_average_rate) != core.rate)
                     or (peak_hold is not None
                         and bool(peak_hold) != core.peak_hold)):
-                self.spec = PlanarSpectrumProcessor(
+                self.spec = self._spec_cls()(
                     self.spec.fft_size,
                     float(fft_average_rate) if fft_average_rate is not None
                     else core.rate,
@@ -609,7 +691,7 @@ class LiveReceiver:
                 self._install_post()
 
     def display_params(self) -> dict:
-        core = self.spec.core
+        core = self._spec_core()
         return {"lps": self.dist.lps, "fft_average_rate": core.rate,
                 "peak_hold": bool(core.peak_hold),
                 "fft_size": self.spec.fft_size,
@@ -733,8 +815,9 @@ class LiveReceiver:
             rate = float(self.pipeline.frontends[self._dv_gi].bandwidth)
             self._dv_dist = FFTDataDistributor(
                 self.demod_view_fft * 2, rate,
-                lines_per_second=self.dist.lps).to(self.device)
-            self._dv_spec = PlanarSpectrumProcessor(
+                lines_per_second=self.dist.lps,
+                dtype=self.pipeline.dtype).to(self.device)
+            self._dv_spec = self._spec_cls()(
                 self.demod_view_fft).to(self.device)
             self._st_dv = (self._dv_dist.init_state(),
                            self._dv_spec.init_state())
@@ -773,8 +856,9 @@ class LiveReceiver:
                 # The selected row of its group's bandwidth-rate tap,
                 # re-blocked and EMA'd like the main spectrum.
                 st_dvd, st_dvs = st_dv
-                st_dvd, (dfr, dval) = dv_dist.apply(
-                    st_dvd, PC(dv_tap.re[dv_row], dv_tap.im[dv_row]))
+                tap = (PC(dv_tap.re[dv_row], dv_tap.im[dv_row])
+                       if isinstance(dv_tap, PC) else dv_tap[dv_row])
+                st_dvd, (dfr, dval) = dv_dist.apply(st_dvd, tap)
                 st_dvs, ddisp = dv_spec.apply(st_dvs, dfr, valid=dval)
                 parts.append(ddisp["spectrum_points"].reshape(-1))
                 st_dv = (st_dvd, st_dvs)

@@ -16,10 +16,15 @@ src/modules/modem/analog/):
               normalised square is the 38 kHz reference) + 0.568*(M +/- S)
               + optional de-emphasis + 16 kHz LPF (ModemFMStereo.cpp:100-300)
 
-Each kit is a StreamOp: (state, iq PC [..., L]) -> (state, audio
+Each kit is a StreamOp: (state, iq [..., L]) -> (state, audio
 [..., C, Lout]), with the JAX kits' arithmetic: DSB's carrier angle is a
-true atan2, FM's discriminator the polynomial one. State is leaf for leaf
-the JAX kits' planar state.
+true atan2, FM's discriminator the polynomial one on planar IQ and a true
+one on complex64. Kits are planes-first: the IQ is a PC
+(``build_kit(dtype=PLANAR)``) or complex64 (``dtype=torch.complex64``),
+the demod math runs on its real planes either way, and the stages that
+carry complex history (resamplers, the discriminator's previous sample)
+hold it in the given representation. State is leaf for leaf the JAX
+kits'.
 """
 
 from __future__ import annotations
@@ -134,8 +139,9 @@ class _EnvelopeDC(StreamOp):
     """|IQ| envelope -> FIR DC blocker (delta minus a narrow lowpass), the
     AM detector (ref: ModemAM.cpp:7-10,40-48: 25-wide dc blocker, 30 dB)."""
 
-    def __init__(self, batch_shape=()):
+    def __init__(self, batch_shape=(), dtype=PLANAR):
         super().__init__()
+        self.dtype = dtype
         n = 51
         lp = design.kaiser_lowpass(n, 0.004, 30.0)
         lp = lp / lp.sum()
@@ -164,7 +170,7 @@ class _EnvelopeDC(StreamOp):
         return torch.sqrt(re * re + im * im)
 
     def shard_carry_init(self):
-        return dtype_zeros((*self.batch_shape, self._k - 1), PLANAR,
+        return dtype_zeros((*self.batch_shape, self._k - 1), self.dtype,
                            self.device)
 
 
@@ -178,7 +184,7 @@ class ModemAM(_AnalogModem):
         return True
 
     def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
-        return _EnvelopeDC(batch_shape)
+        return _EnvelopeDC(batch_shape, dtype)
 
 
 class _DSBDemod(StreamOp):
@@ -230,8 +236,10 @@ class _SSBDemod(StreamOp):
     """One-sided complex-tap FIR -> Re{.}: Re{conv(x, h)} = conv(re, h.re)
     - conv(im, h.im), two real convolutions."""
 
-    def __init__(self, sample_rate, upper: bool, batch_shape=()):
+    def __init__(self, sample_rate, upper: bool, batch_shape=(),
+                 dtype=PLANAR):
         super().__init__()
+        self.dtype = dtype
         taps_len = min(257, design.kaiser_filter_len(
             max(200.0 / sample_rate, 0.002), 60.0) | 1)
         h = np.asarray(design.ssb_bandpass(taps_len, sample_rate,
@@ -265,7 +273,7 @@ class _SSBDemod(StreamOp):
         return planes_of(tail)
 
     def shard_carry_init(self):
-        return dtype_zeros((*self.batch_shape, self.k - 1), PLANAR,
+        return dtype_zeros((*self.batch_shape, self.k - 1), self.dtype,
                            self.device)
 
 
@@ -288,7 +296,7 @@ class _SSBModem(_AnalogModem):
 
     def _demod_op(self, sample_rate, batch_shape, dtype, time_axis=None):
         return _SSBDemod(sample_rate, upper=self.upper,
-                         batch_shape=batch_shape)
+                         batch_shape=batch_shape, dtype=dtype)
 
 
 @register_modem
@@ -328,7 +336,7 @@ class _CWKit(StreamOp):
         s_up, s_n, s_a = state
         s_up, y = self.up.apply(s_up, x)
         s_n, y = self.nco.apply(s_n, (y, self.omega))
-        a = y.re * self.gain
+        a = planes_of(y)[0] * self.gain
         if self.agc:
             s_a, a = self.agc.apply(s_a, a)
         return (s_up, s_n, s_a), a[..., None, :]

@@ -102,8 +102,9 @@ class ConstellationKit(StreamOp):
     start of the stream)."""
 
     def __init__(self, points: np.ndarray, differential: bool = False,
-                 batch_shape: tuple = ()):
+                 batch_shape: tuple = (), dtype=PLANAR):
         super().__init__()
+        self.dtype = dtype
         pts = np.asarray(points, np.complex128)
         self.register_buffer("pts_re", torch.from_numpy(
             pts.real.astype(np.float32)))
@@ -124,7 +125,9 @@ class ConstellationKit(StreamOp):
         return (re[..., 0], im[..., 0])
 
     def shard_carry_init(self):
-        return dtype_ones((*self.batch_shape, 1), PLANAR, self.device)
+        # The carried tail follows the kit's representation (the halo
+        # exchange matches it against the input's).
+        return dtype_ones((*self.batch_shape, 1), self.dtype, self.device)
 
     def init_state(self):
         if self.differential:
@@ -220,10 +223,11 @@ class GMSKKit(StreamOp):
 
     shard_kind = "tail"
 
-    def __init__(self, sps: int, batch_shape: tuple = ()):
+    def __init__(self, sps: int, batch_shape: tuple = (), dtype=PLANAR):
         super().__init__()
         self.sps = int(sps)
         self.batch_shape = tuple(batch_shape)
+        self.dtype = dtype
 
     def shard_halo_len(self):
         return 1
@@ -233,7 +237,7 @@ class GMSKKit(StreamOp):
         return (re[..., 0], im[..., 0])
 
     def shard_carry_init(self):
-        return dtype_ones((*self.batch_shape, 1), PLANAR, self.device)
+        return dtype_ones((*self.batch_shape, 1), self.dtype, self.device)
 
     def init_state(self):
         return (torch.ones(self.batch_shape, device=self.device),
@@ -305,7 +309,7 @@ def _const_modem(name_, points_fn, orders=None, default_order=None,
         def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
                       batch_shape=(), dtype=PLANAR, time_axis=None):
             return ConstellationKit(self.points(), differential,
-                                    batch_shape)
+                                    batch_shape, dtype=dtype)
 
     _M.__name__ = _M.__qualname__ = f"Modem{name_}"
     return register_modem(_M)
@@ -374,7 +378,7 @@ class ModemGMSK(_DigitalModem):
 
     def build_kit(self, sample_rate, audio_rate=DEFAULT_AUDIO_RATE,
                   batch_shape=(), dtype=PLANAR, time_axis=None):
-        return GMSKKit(int(self.settings["sps"]), batch_shape)
+        return GMSKKit(int(self.settings["sps"]), batch_shape, dtype=dtype)
 
 
 def symbols_to_bits(symbols: np.ndarray, bits_per_symbol: int) -> str:

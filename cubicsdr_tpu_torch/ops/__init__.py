@@ -1,1 +1,1 @@
-"""DSP ops of the receive step (planar complex, float32)."""
+"""DSP ops of the receive step (planar or complex64 IQ, float32)."""

@@ -1,6 +1,6 @@
-"""Polyphase filter-bank channelizers, planar
-(``cubicsdr_tpu/ops/channelizer.py``): the critically sampled analyzer
-(PFBCH, liquid firpfbch) and the 2x-oversampled one (PFBCH2, firpfbch2).
+"""Polyphase filter-bank channelizers (``cubicsdr_tpu/ops/channelizer.py``):
+the critically sampled analyzer (PFBCH, liquid firpfbch) and the
+2x-oversampled one (PFBCH2, firpfbch2).
 
 Channel k's output is the input mixed down by w_k = 2*pi*k/M, lowpassed by
 the prototype h and decimated by D (M critically, M/2 oversampled):
@@ -12,20 +12,27 @@ computed as M polyphase branches over reversed stride-D frames, an M-point
 IDFT, a constant phase c_k and, oversampled only, a (-1)^{k*s} parity
 flip. Channel k is centred at +k/M * fs, wrapped
 (ref: src/sdr/SDRPostThread.cpp:406,463,504-509).
+
+Representations: ``dtype=PLANAR`` (two float32 planes; the IDFT as two
+real matmuls, or PFBCH2's CUDA kernel) or ``dtype=torch.complex64``, the
+JAX package's complex path: the depthwise polyphase convolution
+(``conv1d_grouped``, dilation 2 for PFBCH2), then M * ``torch.fft.ifft``
+over the branch axis and c_k as a complex constant. The kernel takes
+planar data only, as the JAX package's Pallas kernel does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from cubicsdr_tpu_torch.ops import design
 from cubicsdr_tpu_torch.ops.kernels.pfb import (
     pfbch2_planar, pfbch2_planar_plain)
 from cubicsdr_tpu_torch.ops.planar import (
-    PC, idft_mats_np, pc_concat, pc_idft_m, pc_mul)
+    PC, PLANAR, dtype_zeros, idft_mats_np, pc_concat, pc_idft_m, pc_mul)
 from cubicsdr_tpu_torch.stream.op import StreamOp
+from cubicsdr_tpu_torch.utils.convolve import conv1d_grouped
 
 
 def _polyphase(h: np.ndarray, M: int) -> np.ndarray:
@@ -39,21 +46,27 @@ def _polyphase(h: np.ndarray, M: int) -> np.ndarray:
     return hp
 
 
-class ChannelizerPFB(StreamOp):
-    """Critically sampled M-channel analyzer on planar data: L inputs ->
-    PC [M, L//M]; L must be a multiple of M. Channel k is centred at
-    +k*fs/M (wrapped) and sampled at fs/M. The reference's configuration:
-    8 taps per branch, a 60 dB Kaiser prototype (ref: src/sdr/
-    SDRPostThread.cpp:406).
+def _complex_c(c: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(c.astype(np.complex64))
 
-    State: J-1 frames of history, already framed and reversed, PC
-    [M, J-1] (the JAX package's layout). Plain PyTorch, as the JAX
-    package computes this analyzer in XLA: a depthwise convolution over
-    the branches, the M-point IDFT as two real matmuls, and c_k."""
+
+class ChannelizerPFB(StreamOp):
+    """Critically sampled M-channel analyzer: L inputs -> [M, L//M] in the
+    representation ``dtype`` (PLANAR or torch.complex64); L must be a
+    multiple of M. Channel k is centred at +k*fs/M (wrapped) and sampled
+    at fs/M. The reference's configuration: 8 taps per branch, a 60 dB
+    Kaiser prototype (ref: src/sdr/SDRPostThread.cpp:406).
+
+    State: J-1 frames of history, already framed and reversed, [M, J-1]
+    (the JAX package's layout). Plain PyTorch, as the JAX package
+    computes this analyzer in XLA: a depthwise convolution over the
+    branches, the M-point IDFT (two real matmuls on planes, an inverse FFT
+    on complex64), and c_k."""
 
     def __init__(self, num_channels: int, taps_per_channel: int = 8,
-                 as_db: float = 60.0):
+                 as_db: float = 60.0, dtype=PLANAR):
         super().__init__()
+        self.dtype = dtype
         self.M = int(num_channels)
         h = design.pfb_prototype(self.M, taps_per_channel, as_db)
         self.register_buffer("h_poly",
@@ -70,22 +83,23 @@ class ChannelizerPFB(StreamOp):
                              torch.from_numpy(c.real.astype(np.float32)))
         self.register_buffer("c_im",
                              torch.from_numpy(c.imag.astype(np.float32)))
+        if dtype != PLANAR:
+            self.register_buffer("c", _complex_c(c))
 
     def init_state(self):
-        z = torch.zeros((self.M, self.J - 1), dtype=torch.float32,
-                        device=self.device)
-        return PC(z, z.clone())
+        return dtype_zeros((self.M, self.J - 1), self.dtype, self.device)
 
     @property
     def hist_len(self) -> int:
         """Raw-sample history equivalent (for the halo exchange)."""
         return (self.J - 1) * self.M
 
-    def hist_from_samples(self, tail: PC) -> PC:
+    def hist_from_samples(self, tail):
         """The framed history state from the last (J-1)*M raw samples."""
         def f(t):
             return t.reshape(self.J - 1, self.M).flip(-1).transpose(0, 1)
-        return PC(f(tail.re), f(tail.im))
+        return PC(f(tail.re), f(tail.im)) if isinstance(tail, PC) \
+            else f(tail)
 
     # Time-sharding: raw-sample tail -> framed history.
     shard_kind = "tail"
@@ -97,9 +111,9 @@ class ChannelizerPFB(StreamOp):
         return self.hist_from_samples(tail)
 
     def shard_carry_init(self):
-        return dtype_zeros((self.hist_len,), PLANAR, self.device)
+        return dtype_zeros((self.hist_len,), self.dtype, self.device)
 
-    def apply(self, hist: PC, x: PC):
+    def apply(self, hist, x):
         if x.shape[-1] % self.M:
             raise ValueError(f"block length {x.shape[-1]} is not a multiple "
                              f"of M={self.M}")
@@ -109,30 +123,40 @@ class ChannelizerPFB(StreamOp):
             # G[s, rho] = x[s*M + M-1 - rho] -> [M, s], branch axis first.
             return p.reshape(n_frames, self.M).flip(-1).transpose(0, 1)
 
+        if not isinstance(x, PC):
+            z = torch.cat([hist, frames(x)], dim=-1)        # [M, J-1+n]
+            u = conv1d_grouped(z, self.h_poly)
+            y = self.M * torch.fft.ifft(u, dim=-2) * self.c[:, None]
+            return z[..., z.shape[-1] - (self.J - 1):], y
         z = pc_concat([hist, PC(frames(x.re), frames(x.im))])   # [M, J-1+n]
-        # Depthwise true convolution of branch rho with h_poly[rho]:
-        # F.conv1d correlates, so the taps are flipped.
-        w = self.h_poly.flip(-1)[:, None, :]
-        u = PC(*(F.conv1d(p[None], w, groups=self.M)[0] for p in z))
+        # Depthwise true convolution of branch rho with h_poly[rho].
+        u = conv1d_grouped(z, self.h_poly)
         y = pc_mul(pc_idft_m(u, self.w_re, self.w_im),
                    PC(self.c_re[:, None], self.c_im[:, None]))
         return z.slice_last(slice(z.shape[-1] - (self.J - 1), None)), y
 
 
 class ChannelizerPFB2(StreamOp):
-    """2x-oversampled M-channel analyzer on planar data: L inputs ->
-    PC [M, 2*L//M]; L must be a multiple of M/2.
+    """2x-oversampled M-channel analyzer: L inputs -> [M, 2*L//M] in the
+    representation ``dtype`` (PLANAR or torch.complex64); L must be a
+    multiple of M/2.
 
-    State: (raw sample history PC [(2J-1)*D], int32 global step parity).
-    ``use_kernels``: run the CUDA analyzer (``csrc/pfb.cu``) on CUDA data;
-    otherwise, and on CPU data, its plain PyTorch version."""
+    State: (raw sample history [(2J-1)*D], int32 global step parity).
+    ``use_kernels`` (planar only, as the JAX package's ``use_pallas``):
+    run the CUDA analyzer (``csrc/pfb.cu``) on CUDA data; otherwise, and on
+    CPU data, its plain PyTorch version."""
 
     def __init__(self, num_channels: int, taps_per_channel: int = 8,
-                 as_db: float = 60.0, use_kernels: bool = False):
+                 as_db: float = 60.0, use_kernels: bool = False,
+                 dtype=PLANAR):
         super().__init__()
         if num_channels % 2:
             raise ValueError(f"PFBCH2 needs an even channel count, got "
                              f"{num_channels}")
+        if use_kernels and dtype != PLANAR:
+            raise ValueError("the PFB kernel takes planar data "
+                             "(dtype=PLANAR) only")
+        self.dtype = dtype
         self.M = int(num_channels)
         self.D = self.M // 2
         h = design.pfb_prototype(self.M, taps_per_channel, as_db)
@@ -151,13 +175,15 @@ class ChannelizerPFB2(StreamOp):
                              torch.from_numpy(c.real.astype(np.float32)))
         self.register_buffer("c_im",
                              torch.from_numpy(c.imag.astype(np.float32)))
+        if dtype != PLANAR:
+            self.register_buffer("c", _complex_c(c))
+            self.register_buffer("flip", torch.from_numpy(
+                np.where(k % 2 == 1, -1.0, 1.0).astype(np.float32)))
         # Oldest sample needed for step s=0: (2J-1)*D samples of history.
         self.hist_len = (2 * self.J - 1) * self.D
 
     def init_state(self):
-        z = torch.zeros(self.hist_len, dtype=torch.float32,
-                        device=self.device)
-        return (PC(z, z.clone()),
+        return (dtype_zeros(self.hist_len, self.dtype, self.device),
                 torch.zeros((), dtype=torch.int32, device=self.device))
 
     # Time-sharding: state = (raw sample tail, step parity); with an even
@@ -169,18 +195,38 @@ class ChannelizerPFB2(StreamOp):
 
     def state_from_tail(self, tail):
         return (tail, torch.zeros((), dtype=torch.int32,
-                                  device=tail.re.device))
+                                  device=tail.device))
 
     def shard_carry_init(self):
         return self.init_state()[0]
 
-    def apply(self, state, x: PC):
+    def _complex(self, z, parity, n_steps: int):
+        """The JAX package's complex64 analyzer on the hist-prefixed
+        stream z: reversed length-M windows at stride D (two adjacent
+        D-rows each), the polyphase FIR at tap dilation 2, M * IFFT over
+        the branches, c_k and the (-1)^{k*s} flip at the global step
+        parity."""
+        n_total = (z.shape[-1] - self.M) // self.D + 1
+        A = z[: (n_total + 1) * self.D].reshape(n_total + 1, self.D)
+        G = torch.cat([A[:-1], A[1:]], dim=-1).flip(-1).transpose(0, 1)
+        u = conv1d_grouped(G, self.h_poly, dilation=2)   # [M, n_steps]
+        y = self.M * torch.fft.ifft(u, dim=-2) * self.c[:, None]
+        s = (torch.arange(n_steps, device=z.device) + parity) % 2
+        sign = torch.where(s[None, :] == 1, self.flip[:, None],
+                           torch.ones_like(self.flip)[:, None])
+        return y * sign
+
+    def apply(self, state, x):
         samp_hist, parity = state
         if x.shape[-1] % self.D:
             raise ValueError(f"block length {x.shape[-1]} is not a multiple "
                              f"of D={self.D}")
         n_steps = x.shape[-1] // self.D
         new_parity = (parity + n_steps) % 2
+        if not isinstance(x, PC):
+            z = torch.cat([samp_hist, x], dim=-1)
+            return ((z[z.shape[-1] - self.hist_len:], new_parity),
+                    self._complex(z, parity, n_steps))
         z = pc_concat([samp_hist, x])
         new_hist = z.slice_last(slice(z.shape[-1] - self.hist_len, None))
         fn = pfbch2_planar if self.use_kernels else pfbch2_planar_plain

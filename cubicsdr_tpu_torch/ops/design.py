@@ -89,3 +89,16 @@ def ssb_bandpass(num_taps: int, bandwidth: float, sample_rate: float,
     n = np.arange(num_taps) - (num_taps - 1) / 2
     h = lp * np.exp(2j * np.pi * shift * n)
     return (2.0 * h).astype(np.complex64)
+
+
+def hilbert_fir(num_taps: int = 63, as_db: float = 60.0) -> np.ndarray:
+    """Type-III FIR Hilbert transformer (odd length, Kaiser window)."""
+    if num_taps % 2 != 1:
+        raise ValueError(f"a type-III Hilbert FIR needs an odd length, got "
+                         f"{num_taps}")
+    n = np.arange(num_taps) - (num_taps - 1) / 2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        h = np.where(np.abs(n) < 1e-9, 0.0,
+                     (1 - np.cos(np.pi * n)) / (np.pi * n))
+    h *= np.kaiser(num_taps, kaiser_beta(as_db))
+    return h.astype(np.float32)

@@ -3,9 +3,9 @@
 
 The carried state is the last K-1 input samples, the history liquid's
 firfilt object keeps, so streaming block by block equals
-``scipy.signal.lfilter`` on the concatenated stream. Data is real float32
-or planar ``PC``; taps are real, or complex (held as a ``PC`` of two
-buffers), and complex taps on real data give planar output.
+``scipy.signal.lfilter`` on the concatenated stream. Data is real float32,
+planar ``PC`` or complex64; taps are real, or complex (held as a ``PC`` of
+two buffers), and complex taps on real data give planar output.
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ class _Taps(StreamOp):
 
 
 class FirFilter(_Taps):
-    """Streaming FIR on real (``dtype=torch.float32``) or planar
-    (``dtype=PLANAR``) data with real or complex taps."""
+    """Streaming FIR on real (``dtype=torch.float32``), planar
+    (``dtype=PLANAR``) or complex64 (``dtype=torch.complex64``) data with
+    real or complex taps."""
 
     def __init__(self, taps, batch_shape: tuple = (), dtype=PLANAR):
         super().__init__(taps, batch_shape, dtype)

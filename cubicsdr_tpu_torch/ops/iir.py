@@ -50,7 +50,13 @@ def _scan_consts(a: float, T: int, n_tiles: int, device: str):
 
 def affine_scan_1st_order(a: float, d, y_prev, tile: int = 256):
     """Solve y[n] = a*y[n-1] + d[n] (y[-1] = y_prev) along the last axis.
-    d: [..., L]; y_prev: [...]."""
+    d: [..., L] real or complex64; y_prev: [...] of d's kind. The
+    coefficient is real, so complex data runs the real recurrence on each
+    plane (real products only, in full float32)."""
+    if d.is_complex():
+        return torch.complex(
+            affine_scan_1st_order(a, d.real, y_prev.real, tile),
+            affine_scan_1st_order(a, d.imag, y_prev.imag, tile))
     L = d.shape[-1]
     T = tile if L >= 2 * tile else L
     n_tiles = -(-L // T)
@@ -70,24 +76,31 @@ def affine_scan_1st_order(a: float, d, y_prev, tile: int = 256):
 class DCBlocker(StreamOp):
     """H(z) = (1 - z^-1) / (1 - (1-alpha) z^-1) — removes the DC spike the
     hardware leaves at the tuner center (ref: src/sdr/SDRPostThread.cpp:29,
-    284). Planar only."""
+    284). Planar or complex64 (``dtype``) data; the coefficient is real,
+    so each plane runs the real recurrence (``affine_scan_1st_order``)."""
 
-    def __init__(self, alpha: float = 0.0005, batch_shape: tuple = ()):
+    def __init__(self, alpha: float = 0.0005, batch_shape: tuple = (),
+                 dtype=PLANAR):
         super().__init__()
         self.alpha = float(alpha)
         self.batch_shape = tuple(batch_shape)
+        self.dtype = dtype
 
     def init_state(self):
-        return (dtype_zeros(self.batch_shape, PLANAR, self.device),   # x[-1]
-                dtype_zeros(self.batch_shape, PLANAR, self.device))   # y[-1]
+        return (dtype_zeros(self.batch_shape, self.dtype, self.device),
+                dtype_zeros(self.batch_shape, self.dtype, self.device))
 
     def _plane(self, x_prev, y_prev, x):
         xd = torch.cat([x_prev[..., None], x], dim=-1)
         d = xd[..., 1:] - xd[..., :-1]
         return affine_scan_1st_order(1.0 - self.alpha, d, y_prev)
 
-    def apply(self, state, x: PC):
+    def apply(self, state, x):
         x_prev, y_prev = state
+        if not isinstance(x, PC):
+            y = self._plane(x_prev, y_prev, x)
+            # A copy, not a view: the caller may overwrite x in place.
+            return (x[..., -1].clone(), y[..., -1]), y
         yr = self._plane(x_prev.re, y_prev.re, x.re)
         yi = self._plane(x_prev.im, y_prev.im, x.im)
         # Copies, not views: the caller may overwrite x in place (the

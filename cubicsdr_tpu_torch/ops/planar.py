@@ -3,6 +3,9 @@
 The JAX package carries IQ this way because the TPU has no complex64
 (``cubicsdr_tpu/ops/planar.py``); the port keeps the same representation so
 its state is leaf for leaf the reference's and the two compare directly.
+Its other representation, ``torch.complex64`` tensors (the JAX package's
+default), goes through the helpers here that take either kind:
+``planes_of``/``join_like`` let one planes-first code path serve both.
 """
 
 from __future__ import annotations
@@ -28,8 +31,26 @@ class PC(NamedTuple):
             return tuple.__getitem__(self, idx)
         return PC(self.re[idx], self.im[idx])
 
+    @property
+    def device(self):
+        return self.re.device
+
     def slice_last(self, sl):
         return PC(self.re[..., sl], self.im[..., sl])
+
+
+def as_pc(x) -> PC:
+    """A complex tensor (or a PC) in planar form."""
+    if isinstance(x, PC):
+        return x
+    return PC(x.real.to(torch.float32), x.imag.to(torch.float32))
+
+
+def to_complex(x) -> torch.Tensor:
+    """A PC (or a complex tensor) as one complex64 tensor."""
+    if isinstance(x, PC):
+        return torch.complex(x.re, x.im)
+    return x.to(torch.complex64)
 
 
 # Sentinel dtype value: ops constructed with dtype=PLANAR carry planar
@@ -81,8 +102,19 @@ def xslice(z, sl: slice):
 
 
 def planes_of(x):
-    """(re, im) float32 planes of a PC."""
-    return x.re, x.im
+    """(re, im) float32 planes of a PC or a complex tensor — the
+    planes-first idiom: kits compute on real planes, so one code path
+    serves both representations."""
+    if isinstance(x, PC):
+        return x.re, x.im
+    return x.real.to(torch.float32), x.imag.to(torch.float32)
+
+
+def join_like(re, im, like):
+    """Assemble planes (re, im) in the representation of ``like``."""
+    if isinstance(like, PC):
+        return PC(re, im)
+    return torch.complex(re, im)
 
 
 def pc_mul(a: PC, b: PC) -> PC:

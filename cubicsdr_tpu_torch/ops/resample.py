@@ -3,8 +3,11 @@
 The ratio is snapped to a rational P/Q and each block of L inputs
 (L % Q == 0) produces exactly L*P/Q outputs. Planar and real data run the
 Toeplitz form: overlapping stride-S windows of the stream against a banded
-[W, O] tap matrix, one batched matmul per stage. Taps, kernels and
-Toeplitz matrices are built exactly as the JAX package builds them.
+[W, O] tap matrix, one batched matmul per stage. complex64 data runs the
+JAX package's conv form: the [P, KK] polyphase kernel as one strided-Q
+multi-filter convolution per plane, its P output phases interleaved.
+Taps, kernels and Toeplitz matrices are built exactly as the JAX package
+builds them.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from torch import nn
 
 from cubicsdr_tpu_torch.ops import design
-from cubicsdr_tpu_torch.ops.planar import PC, PLANAR, dtype_zeros, xcat, xtail
+from cubicsdr_tpu_torch.ops.planar import (
+    PC, PLANAR, as_pc, dtype_zeros, join_like, xcat, xtail)
 from cubicsdr_tpu_torch.stream.op import StreamOp
 from cubicsdr_tpu_torch.utils.convolve import conv_real
 
@@ -81,7 +85,7 @@ class RationalResampler(StreamOp):
 
     y[m] = sum_k h[k] u[m*Q - k] with u the P-upsampled (zero-stuffed)
     input — scipy.signal.upfirdn semantics with streaming state. ``dtype``
-    is PLANAR or torch.float32 (real data)."""
+    is PLANAR, torch.complex64 or torch.float32 (real data)."""
 
     def __init__(self, P: int, Q: int, taps=None, batch_shape: tuple = (),
                  dtype=PLANAR, taps_per_phase: int = 24,
@@ -132,7 +136,10 @@ class RationalResampler(StreamOp):
     def apply(self, hist, x):
         assert x.shape[-1] % self.Q == 0, (x.shape, self.Q)
         z = xcat([hist, x])
-        y = planar_resample_matmul(z, self)
+        if isinstance(z, PC) or not z.is_complex():
+            y = planar_resample_matmul(z, self)
+        else:
+            y = join_like(*planar_rational_resample(as_pc(z), self), z)
         return xtail(z, self.hist_len), y
 
     # Time-sharding: the carried state IS the input tail.
@@ -270,10 +277,11 @@ def _windows(plane, start: int, n_rows: int, S: int, W: int):
 
 
 def planar_rational_resample(x, rs: RationalResampler):
-    """Conv-form fallback: rs's polyphase kernel [P, KK] as a bank of P
-    stride-Q true convolutions over [..., L] data (planar PC or real)
-    prefixed with rs.hist_len history, for output lengths no Toeplitz tile
-    divides. Output phase r of block b lands at b*P + r."""
+    """Conv form: rs's polyphase kernel [P, KK] as a bank of P stride-Q
+    true convolutions over [..., L] data (planar PC or real) prefixed with
+    rs.hist_len history — complex64 data's form, and planar data's for
+    output lengths no Toeplitz tile divides. Output phase r of block b
+    lands at b*P + r."""
     start = rs.hist_len + rs.Q - 1 - (rs.KK - 1)
 
     def one_plane(z):

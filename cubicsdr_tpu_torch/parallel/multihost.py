@@ -21,7 +21,8 @@ collectives (``host_collectives=True``, ``multihost --host-collectives``):
 then the ranks share the cards and run their collectives through gloo on
 host copies of the card's tensors, the stand-in for a link between hosts.
 ``spawn_ranks`` runs a function on N local ranks in one call
-(``rx --mesh``).
+(``rx --mesh``, the scaling harness and the dry run), and
+``spawn_collect`` also returns rank 0's report.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -121,10 +123,11 @@ def init_rank(init_method: str, world: int, rank: int,
                             world_size=world, rank=rank)
 
 
-def _rank_main(rank, fn, world, init_method, device, args):
+def _rank_main(rank, fn, world, init_method, device, args,
+               host_collectives=False):
     if device == "cpu":                 # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    init_rank(init_method, world, rank, device)
+    init_rank(init_method, world, rank, device, host_collectives)
     try:
         fn(rank, *args)
     finally:
@@ -132,17 +135,39 @@ def _rank_main(rank, fn, world, init_method, device, args):
 
 
 def spawn_ranks(fn, world: int, args=(), device: str = "cuda",
-                init_method: str | None = None) -> None:
+                init_method: str | None = None,
+                host_collectives: bool = False) -> None:
     """Run ``fn(rank, *args)`` on ``world`` local ranks, one process and
     one device each (``fn`` must be importable by name); a rank that
     fails fails the call. On the card, ranks that outnumber the cards
-    are refused (NCCL takes one rank per GPU)."""
+    are refused (NCCL takes one rank per GPU) unless the caller asks for
+    ``host_collectives``: then they share the cards and their collectives
+    run through gloo on host copies."""
     import torch.multiprocessing as mp
-    check_local_ranks(world, device, host_collectives=False)
+    check_local_ranks(world, device, host_collectives)
     init_method = init_method or f"tcp://127.0.0.1:{free_port()}"
     mp.start_processes(_rank_main, args=(fn, world, init_method, device,
-                                         args),
+                                         args, host_collectives),
                        nprocs=world, join=True, start_method="spawn")
+
+
+def spawn_collect(fn, world: int, args=(), device: str = "cuda",
+                  host_collectives: bool = False) -> dict:
+    """``spawn_ranks`` for a function that reports: ``fn(rank, *args,
+    report_path)`` runs on every rank and rank 0 writes a JSON object to
+    ``report_path`` (a temporary file), which this returns."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "report.json")
+        spawn_ranks(fn, world, (*args, path), device,
+                    host_collectives=host_collectives)
+        with open(path) as f:
+            return json.load(f)
+
+
+def rank_device(device: str) -> torch.device:
+    """This rank's device after ``init_rank``."""
+    return (torch.device("cuda", torch.cuda.current_device())
+            if device == "cuda" else torch.device("cpu"))
 
 
 def run_worker(coordinator: str, num_processes: int, process_id: int,
@@ -171,8 +196,7 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
               host)
     try:
         fs, M, groups, freqs, capture, block_len = PLANS[plan]()
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if device == "cuda" else torch.device("cpu"))
+        dev = rank_device(device)
         mesh = make_receiver_mesh(n_time=num_processes, n_chan=1,
                                   device_type=dev.type,
                                   host_collectives=host)

@@ -6,7 +6,9 @@ Planar data takes the folded path: the NCO is folded into the first
 resampler stage (``ops.resample.planar_shifted_resample_matmul``) so no
 full-rate phasor is generated. ``RoutedChannelFrontend`` goes further and
 routes each demod to its channel inside the fused CUDA kernel
-(``ops/kernels/route.py``).
+(``ops/kernels/route.py``). complex64 data takes the JAX package's
+unfolded form: the full-length phasor mix (``ops.nco.mix``), then the
+resampler's conv form, with state (NCO phase, resampler state).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ TWO_PI = 6.283185307179586
 
 
 class ChannelFrontend(StreamOp):
-    """(state, (x PC [..., N, L], omega [N])) -> (state, y PC [..., N, Lout]).
+    """(state, (x [..., N, L], omega [N])) -> (state, y [..., N, Lout]),
+    x and y PCs (``dtype=PLANAR``) or complex64 (``dtype=torch.complex64``).
 
     ``omega`` = 2*pi*(channelCenter - demodFreq)/channelRate per demod:
     the mix-down that shifts the wanted carrier to DC."""
@@ -39,8 +42,9 @@ class ChannelFrontend(StreamOp):
     def __init__(self, channel_rate: float, bandwidth: float,
                  n_demods: int, batch_shape: tuple = (), dtype=PLANAR):
         super().__init__()
-        if dtype != PLANAR:
-            raise ValueError("the port carries IQ in planar form only")
+        if dtype not in (PLANAR, torch.complex64):
+            raise ValueError(f"IQ is PLANAR or torch.complex64, not "
+                             f"{dtype!r}")
         self.channel_rate = float(channel_rate)
         self.bandwidth = float(bandwidth)
         bs = (*batch_shape, n_demods)
@@ -55,7 +59,9 @@ class ChannelFrontend(StreamOp):
                         else self.resampler)
         self._rest = nn.ModuleList(self.resampler.stages[1:] if chain
                                    else [])
-        self.folded = isinstance(self._stage1, RationalResampler)
+        # The folded mix is planar-only, as in the JAX package.
+        self.folded = (dtype == PLANAR
+                       and isinstance(self._stage1, RationalResampler))
 
     def out_len(self, in_len: int) -> int:
         return in_len // self.Q * self.P

@@ -9,8 +9,12 @@ SDRPostThread -> PreThread -> DemodulatorThread -> AudioThread chain):
           -> modem kits -> squelch/level -> stereo upmix -> gain/mute/solo mix
 
 Retunes, squelch levels, gains and mutes are per-block control tensors.
-The port carries planar IQ (``dtype=PLANAR``) through every channelizer
-mode of the JAX package, with every modem of the registry. Digital groups
+The port carries IQ through every channelizer mode of the JAX package,
+with every modem of the registry, in either of its representations:
+planar (``dtype=PLANAR``, two float32 planes, the default and the CUDA
+kernels' representation) or ``dtype=torch.complex64`` (the JAX package's
+default; its channelizers run a depthwise convolution and an inverse FFT,
+its frontends mix then resample, and no kernel runs). Digital groups
 (modem_type == "digital") ride the same chain: their kits emit symbol
 streams instead of audio (ref: ModemDigital.cpp:56-83), the signal meter
 runs on their channel IQ, and they add nothing to the audio mix (the
@@ -61,29 +65,41 @@ class ReceiverPipeline(StreamOp):
 
     Constructor arguments are the JAX package's, with ``use_kernels`` for
     ``use_pallas`` (the hand-written CUDA kernels instead of the Pallas
-    ones; on CPU data their plain versions run) and ``device``. Both
-    default to the card's path: ``device="cuda"`` raises where there is no
-    CUDA device (pass ``device="cpu"`` to run on the host), and
-    ``use_kernels=True`` (pass False for the plain path, the JAX package's
-    ``use_pallas=False``).
+    ones; on CPU data their plain versions run) and ``device``.
+    ``device="cuda"`` is the default and raises where there is no CUDA
+    device (pass ``device="cpu"`` to run on the host).
+
+    ``dtype``: PLANAR (the default) or torch.complex64. The kernels take
+    planar data only, as the JAX package's Pallas kernels do, so
+    ``use_kernels=None`` (the default) means True for PLANAR and False for
+    complex64, and an explicit ``use_kernels=True`` with complex64 raises
+    ValueError. ``use_kernels=False`` is the plain path, the JAX package's
+    ``use_pallas=False``.
 
     chan_mode: 'pfbch' | 'pfbch2' | 'single' (ref modes:
     SDRPostThreadChannelizerType, src/sdr/SDRPostThread.h:25-27; 'single'
     is the numChannels==1 DC-blocked passthrough, ref: SDRPostThread.cpp:
-    248-301). Only ``dtype=PLANAR`` exists in the port so far."""
+    248-301)."""
 
     def __init__(self, sample_rate: float, groups: list[DemodGroupSpec],
                  chan_mode: str = "pfbch2", num_channels: int | None = None,
                  audio_rate: int = 48000, block_len: int | None = None,
-                 dtype=PLANAR, use_kernels: bool = True, device="cuda"):
+                 dtype=PLANAR, use_kernels: bool | None = None,
+                 device="cuda"):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "ReceiverPipeline runs on the card by default and this host "
                 "has no CUDA device; pass device='cpu' to run on the host")
-        if dtype != PLANAR:
-            raise ValueError("the port has dtype=PLANAR only")
+        if dtype not in (PLANAR, torch.complex64):
+            raise ValueError(f"dtype is PLANAR or torch.complex64, not "
+                             f"{dtype!r}")
+        if use_kernels is None:
+            use_kernels = dtype == PLANAR
+        elif use_kernels and dtype != PLANAR:
+            raise ValueError("the CUDA kernels take planar data: "
+                             "use_kernels=True needs dtype=PLANAR")
         if chan_mode not in ("pfbch", "pfbch2", "single"):
             raise ValueError(f"unknown chan_mode {chan_mode!r}")
         self.sample_rate = float(sample_rate)
@@ -127,16 +143,16 @@ class ReceiverPipeline(StreamOp):
         # Channelizer + DC blocker (channel 0 carries the tuner DC spike,
         # ref: SDRPostThread.cpp:364-375).
         if chan_mode == "pfbch":
-            self.channelizer = ChannelizerPFB(self.M)
+            self.channelizer = ChannelizerPFB(self.M, dtype=dtype)
             self._decim = self.M
         elif chan_mode == "pfbch2":
-            self.channelizer = ChannelizerPFB2(self.M,
-                                               use_kernels=use_kernels)
+            self.channelizer = ChannelizerPFB2(
+                self.M, use_kernels=use_kernels, dtype=dtype)
             self._decim = self.M // 2
         else:
             self.channelizer = None
             self._decim = 1
-        self.dc = DCBlocker(0.0005)
+        self.dc = DCBlocker(0.0005, dtype=dtype)
         centers = (channel_centers(self.M, self.sample_rate)
                    if self.channelizer is not None else np.zeros(1))
         self.register_buffer("centers", torch.from_numpy(
@@ -249,26 +265,32 @@ class ReceiverPipeline(StreamOp):
         return out
 
     def apply(self, state, inputs):
-        """inputs = (iq PC [L], controls list-of-dicts). Returns (state,
+        """inputs = (iq [L] in the pipeline's representation, a PC or a
+        complex64 tensor; controls list-of-dicts). Returns (state,
         outputs): mix [2, La], mix_peak, per-group dicts (analog: audio,
         level, floor, ceil, peak, squelched, iq; digital: symbols, evm,
         locked, level, floor, ceil, squelched, iq) and the iq
         passthrough."""
         iq, controls = inputs
         dev = self.device
+        planar = isinstance(iq, PC)
         if self.channelizer is not None:
             st_chan, chans = self.channelizer.apply(state["chan"], iq)
             # DC-block channel 0 (tuner spike), written in place into the
             # channelizer's fresh output.
-            st_dc, ch0 = self.dc.apply(state["dc"],
-                                       PC(chans.re[0], chans.im[0]))
-            chans.re[0] = ch0.re
-            chans.im[0] = ch0.im
+            if planar:
+                st_dc, ch0 = self.dc.apply(state["dc"],
+                                           PC(chans.re[0], chans.im[0]))
+                chans.re[0] = ch0.re
+                chans.im[0] = ch0.im
+            else:
+                st_dc, ch0 = self.dc.apply(state["dc"], chans[0])
+                chans[0] = ch0
         else:
             # 'single': the whole DC-blocked stream is the one channel.
             st_chan = ()
             st_dc, dcq = self.dc.apply(state["dc"], iq)
-            chans = PC(dcq.re[None], dcq.im[None])
+            chans = PC(dcq.re[None], dcq.im[None]) if planar else dcq[None]
 
         group_states, group_outs = [], []
         audio_all, peaks_all, gains_all, active_all = [], [], [], []
@@ -288,7 +310,8 @@ class ReceiverPipeline(StreamOp):
             if self.fused_route[gi]:
                 s_fe, y = fe.apply(s_fe, (chans, chan_idx, omega))
             else:
-                x = PC(chans.re[chan_idx], chans.im[chan_idx])  # [N, Lc]
+                x = (PC(chans.re[chan_idx], chans.im[chan_idx]) if planar
+                     else chans[chan_idx])                   # [N, Lc]
                 s_fe, y = fe.apply(s_fe, (x, omega))
             s_kit, ko = kit.apply(s_kit, y)
             if self.is_digital[gi]:

@@ -26,8 +26,8 @@ def linear_to_db(x):
 
 
 class SquelchGate(StreamOp):
-    """apply(state, (audio [..., N, C, L] | None, iq PC [..., N, L],
-    squelch_level [N], squelch_enabled [N])) ->
+    """apply(state, (audio [..., N, C, L] | None, iq [..., N, L] (PC or
+    complex64), squelch_level [N], squelch_enabled [N])) ->
     (state, dict(audio, squelched, level, floor, ceil, peak)).
 
     ``use_signal_out`` (bool per demod) selects audio-vs-IQ level source.
@@ -62,7 +62,7 @@ class SquelchGate(StreamOp):
 
     def apply(self, state, inputs):
         audio, iq, squelch_level, squelch_enabled = inputs
-        dev = iq.re.device
+        dev = iq.device
         ta = self.time_axis
         n_t = ta.size if ta is not None else 1
 

@@ -26,9 +26,10 @@ def _is_pc(node) -> bool:
 def state_from_numpy(tree, device=None):
     """A JAX state with numpy (or jax array) leaves -> the port's state:
     tensors on ``device``, planar (re, im) NamedTuples as the port's
-    ``PC``, dtypes kept. Serves the pipeline state and the visual states
-    alike: the distributor's ``(hist PC, next_pos)`` and the spectrum
-    dict, ``primed`` staying bool."""
+    ``PC``, dtypes kept (a complex64 pipeline's leaves stay complex64).
+    Serves the pipeline state and the visual states alike: the
+    distributor's ``(hist, next_pos)`` and the spectrum dict, ``primed``
+    staying bool."""
     def node(nt, kids):
         return PC(*kids) if _is_pc(nt) else type(nt)(*kids)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
@@ -62,12 +63,24 @@ def _pairs(rx_jax, rx):
         raise ValueError("one pipeline has a channelizer, the other not")
     if ch is not None:                       # 'single' mode has none
         yield "channelizer.h_poly", ch_j.h_poly, ch.h_poly
-        yield "channelizer.c.re", np.asarray(ch_j.c_pc.re)[:, 0], ch.c_re
-        yield "channelizer.c.im", np.asarray(ch_j.c_pc.im)[:, 0], ch.c_im
+        if hasattr(ch_j, "c_pc"):            # planar: c_k as two planes
+            yield "channelizer.c.re", np.asarray(ch_j.c_pc.re)[:, 0], ch.c_re
+            yield "channelizer.c.im", np.asarray(ch_j.c_pc.im)[:, 0], ch.c_im
+        else:                                # complex64: one complex c_k
+            yield "channelizer.c", ch_j.c, ch.c
+            if hasattr(ch_j, "flip"):        # PFBCH2's parity flip
+                yield "channelizer.flip", ch_j.flip, ch.flip
     for gi, (fe_j, fe) in enumerate(zip(rx_jax.frontends, rx.frontends)):
-        for si, (a, b) in enumerate(zip(_stages(fe_j.resampler),
-                                        _stages(fe.resampler))):
-            yield f"frontends[{gi}].stage[{si}].ker", a.ker, b.ker
+        if fe_j.folded != fe.folded:
+            raise ValueError(f"frontend {gi}: one package folds the NCO "
+                             f"into the resampler, the other not")
+        sj, sp = _stages(fe_j.resampler), _stages(fe.resampler)
+        if len(sj) != len(sp):
+            raise ValueError(f"frontend {gi}: {len(sj)} resampler stages "
+                             f"vs {len(sp)}")
+        for si, (a, b) in enumerate(zip(sj, sp)):
+            if hasattr(b, "ker"):            # not a unity-ratio stage
+                yield f"frontends[{gi}].stage[{si}].ker", a.ker, b.ker
         if isinstance(fe, RoutedChannelFrontend):
             # The JAX kernel builds its tile matrix from its stage kernel
             # with the same banded layout.

@@ -4,14 +4,17 @@ CUDA device.
     python3 -m cubicsdr_tpu_torch.utils.profile_step [--demods 16 256]
                                                      [--blocks 10] [--live]
                                                      [--plan scan58]
+                                                     [--dtype complex64]
 
-Runs ReceiverPipeline(use_kernels=True) (8 MS/s, FM demods, 1,024,000-
-sample blocks, device-resident IQ and controls) under torch.profiler and
-prints one JSON line per demod count: the wall time per block, the summed
-device kernel time per block, the device idle share (1 - kernel time /
-wall time) and the kernels that take the most device time. The profiler
-slows the host, so its wall times read above unprofiled ones. ``--plan
-scan58`` profiles that mixed plan (``utils/synth.py``) instead.
+Runs ReceiverPipeline with its defaults (planar, both kernels; 8 MS/s,
+FM demods, 1,024,000-sample blocks, device-resident IQ and controls)
+under torch.profiler and prints one JSON line per demod count: the wall
+time per block, the summed device kernel time per block, the device idle
+share (1 - kernel time / wall time), the device kernels launched per
+block and the kernels that take the most device time. The profiler slows the host, so its wall
+times read above unprofiled ones. ``--plan scan58`` profiles that mixed
+plan (``utils/synth.py``) instead. ``--dtype complex64`` profiles the
+complex64 pipeline (no kernel of the port's own) at the same block.
 
 ``--live`` profiles the live loop instead (demod16, a back-pressured
 cycling source, 1024-point 64-line waterfall), one line per ring format:
@@ -30,7 +33,7 @@ import time
 
 import torch
 
-from cubicsdr_tpu_torch.ops.planar import PC
+from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
 from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
 from cubicsdr_tpu_torch.utils.synth import demod_freqs, synth_fm
 
@@ -38,25 +41,33 @@ FS = 8_000_000
 BLOCK = 1_024_000
 
 
-def profile(n_demods: int, n_blocks: int, top: int = 12) -> dict:
+DTYPES = {"planar": PLANAR, "complex64": torch.complex64}
+
+
+def profile(n_demods: int, n_blocks: int, top: int = 12,
+            dtype: str = "planar") -> dict:
     dev = torch.device("cuda", 0)
     rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, n_demods)],
-                          use_kernels=True, block_len=BLOCK, device=dev)
+                          block_len=BLOCK, device=dev, dtype=DTYPES[dtype])
     controls = rx.control_template()
     controls[0]["frequency"] = demod_freqs(n_demods)
     iq = synth_fm(demod_freqs(16), BLOCK, FS, dev, seed=3)
-    return {"demods": n_demods,
+    return {"demods": n_demods, "dtype": dtype,
             **profile_pipeline(rx, iq, controls, n_blocks, top)}
 
 
-def profile_plan(name: str, n_blocks: int, top: int = 12) -> dict:
+def profile_plan(name: str, n_blocks: int, top: int = 12,
+                 dtype: str = "planar") -> dict:
     """A named plan of ``utils/synth.py`` (scan58), built with the
-    pipeline's defaults, on one block of its capture."""
+    pipeline's defaults at the planar pipeline's block length, on one
+    block of its capture."""
     from cubicsdr_tpu_torch.utils import synth
     plan = getattr(synth, name)()
-    rx = plan.pipeline()
+    block_len = plan.pipeline(device="cpu").block_len
+    rx = plan.pipeline(dtype=DTYPES[dtype], block_len=block_len)
     iq = plan.capture(rx.block_len, rx.device, seed=3)
-    return {"plan": name, "demods": sum(g.count for g in plan.specs),
+    return {"plan": name, "dtype": dtype,
+            "demods": sum(g.count for g in plan.specs),
             "block_len": rx.block_len,
             **profile_pipeline(rx, iq, plan.controls(rx), n_blocks, top)}
 
@@ -67,7 +78,8 @@ def profile_pipeline(rx, iq, controls, n_blocks: int, top: int) -> dict:
     dev = rx.device
     controls = [{k: torch.as_tensor(v, device=dev) for k, v in c.items()}
                 for c in controls]
-    blk = PC(iq[0].contiguous(), iq[1].contiguous())
+    blk = (PC(iq[0].contiguous(), iq[1].contiguous())
+           if rx.dtype == PLANAR else torch.complex(iq[0], iq[1]))
     st = rx.init_state()
     for _ in range(3):
         st, _ = rx.apply(st, (blk, controls))
@@ -82,9 +94,13 @@ def profile_pipeline(rx, iq, controls, n_blocks: int, top: int) -> dict:
         wall = time.perf_counter() - t0
     wall_ms = wall / n_blocks * 1e3
     dev_ms, rows = _device_ms(prof, n_blocks, top)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0)
     return {"wall_ms_per_block": wall_ms,
             "device_ms_per_block": dev_ms,
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
+            "kernel_launches_per_block": launches / n_blocks,
             "top": rows}
 
 
@@ -159,6 +175,8 @@ def main() -> int:
                     help="profile the live loop per ring format")
     ap.add_argument("--plan", choices=["scan58"],
                     help="profile a mixed plan of utils/synth.py")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="planar",
+                    help="the pipeline's representation")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -169,10 +187,12 @@ def main() -> int:
             print(json.dumps(profile_live(dt, args.blocks)), flush=True)
         return 0
     if args.plan:
-        print(json.dumps(profile_plan(args.plan, args.blocks)), flush=True)
+        print(json.dumps(profile_plan(args.plan, args.blocks,
+                                      dtype=args.dtype)), flush=True)
         return 0
     for n in args.demods:
-        print(json.dumps(profile(n, args.blocks)), flush=True)
+        print(json.dumps(profile(n, args.blocks, dtype=args.dtype)),
+              flush=True)
     return 0
 
 

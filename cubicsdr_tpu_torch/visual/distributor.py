@@ -6,7 +6,8 @@ Each input block of L samples yields a FIXED frame capacity
 [max_lines, fft_size] plus a validity mask; frame start times follow the
 reference's fractional line pacing. The pacer runs in float32 exactly as
 the JAX package computes it, so frame indices and masks are identical,
-not merely close. Planar (PC) data only.
+not merely close. Data is planar (``dtype=PLANAR``, a PC) or complex64
+(``dtype=torch.complex64``); the gather is the same per plane.
 """
 
 from __future__ import annotations
@@ -14,14 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cubicsdr_tpu_torch.ops.planar import PC, pc_concat
+from cubicsdr_tpu_torch.ops.planar import (
+    PC, PLANAR, dtype_zeros, xcat, xtail)
 from cubicsdr_tpu_torch.stream.op import StreamOp
 
 
 class FFTDataDistributor(StreamOp):
     def __init__(self, fft_size: int, sample_rate: float,
-                 lines_per_second: float = 30.0, block_len: int = 0):
+                 lines_per_second: float = 30.0, block_len: int = 0,
+                 dtype=PLANAR):
         super().__init__()
+        self.dtype = dtype
         self.fft_size = int(fft_size)
         self.sample_rate = float(sample_rate)
         self.lps = float(lines_per_second)
@@ -35,23 +39,23 @@ class FFTDataDistributor(StreamOp):
             self.max_lines = int(np.ceil(block_len / self.hop)) + 1
 
     def init_state(self):
-        n = self.fft_size - 1
-        z = dict(dtype=torch.float32, device=self.device)
-        return (PC(torch.zeros(n, **z), torch.zeros(n, **z)),
-                torch.zeros((), **z))            # history, next line pos
+        return (dtype_zeros(self.fft_size - 1, self.dtype, self.device),
+                torch.zeros((), dtype=torch.float32,
+                            device=self.device))    # history, next line pos
 
-    def apply(self, state, x: PC):
-        """x: PC [L] -> (frames PC [max_lines, fft_size], valid
-        [max_lines] bool). Frame k starts when the fractional accumulator
-        crosses; positions are relative to the block with fft_size-1
-        samples of history, so a line may straddle the boundary."""
+    def apply(self, state, x):
+        """x: [L] PC or complex64 -> (frames [max_lines, fft_size] of x's
+        kind, valid [max_lines] bool). Frame k starts when the fractional
+        accumulator crosses; positions are relative to the block with
+        fft_size-1 samples of history, so a line may straddle the
+        boundary."""
         hist, next_pos = state
         L = x.shape[-1]
         if not self.block_len:
             self.block_len = L
             self.max_lines = int(np.ceil(L / self.hop)) + 1
-        z = pc_concat([hist, x])
-        dev = z.re.device
+        z = xcat([hist, x])
+        dev = z.device
         k = torch.arange(self.max_lines, dtype=torch.float32, device=dev)
         starts = next_pos + k * self.hop32          # block-sample units
         valid = starts <= (L - 1)
@@ -59,9 +63,8 @@ class FFTDataDistributor(StreamOp):
         # earlier; offset by history length.
         s_idx = starts.clamp(0, L - 1).to(torch.int64)
         idx = s_idx[:, None] + torch.arange(self.fft_size, device=dev)
-        frames = PC(z.re[idx], z.im[idx])
+        frames = PC(z.re[idx], z.im[idx]) if isinstance(z, PC) else z[idx]
         n_emitted = valid.to(torch.float32).sum()
         new_next = next_pos + n_emitted * self.hop32 - L
-        new_hist = z.slice_last(slice(z.shape[-1] - (self.fft_size - 1),
-                                      None))
+        new_hist = xtail(z, self.fft_size - 1)
         return (new_hist, new_next), (frames, valid)

@@ -281,17 +281,22 @@ class ZoomSpectrumView:
     One front (NCO, resampler, pacer, step) per (P, Q, chunk), cached, so
     a revisited zoom level reuses its built front; the view offset rides
     in as a device scalar. Host code buffers arbitrary block lengths into
-    fixed Q-divisible chunks. Planar only, on ``device``: the card unless
-    the caller asks for the host (``device="cpu"``); without a CUDA device
-    the default raises, as ``ReceiverPipeline``'s does.
+    fixed Q-divisible chunks. ``dtype`` is the receive step's
+    representation (PLANAR or torch.complex64), which the device-resident
+    feed takes as it comes. On ``device``: the card unless the caller asks
+    for the host (``device="cpu"``); without a CUDA device the default
+    raises, as ``ReceiverPipeline``'s does.
     """
 
     def __init__(self, input_rate: float, block_len: int,
                  fft_size: int = DEFAULT_FFT_SIZE,
                  lines_per_second: float = 30.0,
-                 fft_average_rate: float = 0.65, device="cuda"):
+                 fft_average_rate: float = 0.65, device="cuda",
+                 dtype=PLANAR):
         from cubicsdr_tpu_torch.visual.planar_spectrum import (
             PlanarSpectrumProcessor)
+        self.dtype = dtype
+        self.planar = dtype == PLANAR
         self.input_rate = float(input_rate)
         self.block_len = int(block_len)
         self.fft_size = int(fft_size)
@@ -302,8 +307,9 @@ class ZoomSpectrumView:
             raise RuntimeError(
                 "ZoomSpectrumView runs on the card by default and this host "
                 "has no CUDA device; pass device='cpu' to run on the host")
-        self.core = PlanarSpectrumProcessor(
-            fft_size, fft_average_rate).to(self.device)
+        core_cls = (PlanarSpectrumProcessor if self.planar
+                    else SpectrumProcessor)
+        self.core = core_cls(fft_size, fft_average_rate).to(self.device)
         self.view_offset = 0.0
         self.view_bandwidth = float(input_rate)
         self.st_core = self.core.init_state()
@@ -346,10 +352,11 @@ class ZoomSpectrumView:
                 self.front_cache_hits += 1
                 return ent
         nco = NCOMixer().to(self.device)
-        res = make_resampler(P, Q, dtype=PLANAR).to(self.device)
+        res = make_resampler(P, Q, dtype=self.dtype).to(self.device)
         dist = FFTDataDistributor(self.n, resample_bw,
                                   lines_per_second=self.lps,
-                                  block_len=chunk // Q * P).to(self.device)
+                                  block_len=chunk // Q * P,
+                                  dtype=self.dtype).to(self.device)
         core = self.core
 
         def _step(st_front, st_core, x, omega):
@@ -384,7 +391,7 @@ class ZoomSpectrumView:
             return
         z = torch.zeros(chunk, dtype=torch.float32, device=self.device)
         step((nco.init_state(), res.init_state(), dist.init_state()),
-             self.core.init_state(), PC(z, z),
+             self.core.init_state(), self._iq(z, z),
              torch.zeros((), dtype=torch.float32, device=self.device))
         self._warmed.add(id(step))
 
@@ -424,8 +431,12 @@ class ZoomSpectrumView:
             self.view_offset = float(offset)
             self._set_omega()
 
+    def _iq(self, re, im):
+        """Host-fed planes in the view's representation."""
+        return PC(re, im) if self.planar else torch.complex(re, im)
+
     # ---- streaming -------------------------------------------------------
-    def feed_device(self, x: PC):
+    def feed_device(self, x):
         """Device-resident feed: ``x`` is the step's full-band block
         already on the device — no host->device re-upload. Requires the
         view chunk to equal the block length; returns (points, n_valid)
@@ -447,7 +458,8 @@ class ZoomSpectrumView:
                               self._buf[:, self.chunk:])
             x = torch.from_numpy(np.ascontiguousarray(cur)).to(self.device)
             self._st_front, self.st_core, pts, nv = self._step(
-                self._st_front, self.st_core, PC(x[0], x[1]), self._omega)
+                self._st_front, self.st_core, self._iq(x[0], x[1]),
+                self._omega)
             if int(nv):
                 self.points = pts.cpu().numpy()
         return self.points

@@ -223,8 +223,10 @@ def test_block_len_explicit_and_complex64_refused():
     rx = ReceiverPipeline(FS, spec, chan_mode="single", block_len=BLOCK,
                           device="cpu")
     assert rx.block_len_explicit and rx.block_len == BLOCK
+    # complex64 runs without the kernels; asking for them is refused.
     with pytest.raises(ValueError, match="PLANAR"):
-        ReceiverPipeline(FS, spec, dtype=torch.complex64, device="cpu")
+        ReceiverPipeline(FS, spec, dtype=torch.complex64, use_kernels=True,
+                         device="cpu")
     with pytest.raises(ValueError, match="chan_mode"):
         ReceiverPipeline(FS, spec, chan_mode="pfbch4", device="cpu")
 

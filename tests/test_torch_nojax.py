@@ -72,6 +72,25 @@ def test_sharded_modules_import_without_jax():
          + _CHECK)
 
 
+# The analytic filter, the weak-scaling harness and the multi-rank dry
+# run.
+_HILBERT_SCALING_DRYRUN = (
+    "cubicsdr_tpu_torch.ops.hilbert", "cubicsdr_tpu_torch.parallel.scaling",
+    "cubicsdr_tpu_torch.parallel.dryrun")
+
+
+def test_hilbert_scaling_and_dryrun_import_without_jax():
+    """The analytic filter, the scaling harness and the dry run (whose
+    rank functions import the sharded receiver when they run) load
+    neither jax nor any module of the JAX package, and the package walk
+    finds them."""
+    assert set(_HILBERT_SCALING_DRYRUN) <= set(_port_modules())
+    _run("import sys\n"
+         + "".join(f"import {m}\n" for m in _HILBERT_SCALING_DRYRUN)
+         + "from cubicsdr_tpu_torch.parallel import dryrun, scaling\n"
+         "import cubicsdr_tpu_torch.parallel.sharded\n" + _CHECK)
+
+
 @pytest.mark.parametrize("module", [
     "cubicsdr_tpu_torch.app.runner", "cubicsdr_tpu_torch.app.checkpoint",
     "cubicsdr_tpu_torch.visual", "cubicsdr_tpu_torch.receiver.manager",

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
 from cubicsdr_tpu.app.runner import LiveReceiver as JLive  # noqa: E402
 from cubicsdr_tpu.io.sources import Station, SyntheticSource  # noqa: E402
 from cubicsdr_tpu.io.wav import read_wav  # noqa: E402
@@ -30,6 +32,7 @@ import cubicsdr_tpu.receiver as J  # noqa: E402
 
 import cubicsdr_tpu_torch.receiver as T  # noqa: E402
 from cubicsdr_tpu_torch.app.runner import LiveReceiver, _Stager  # noqa: E402
+from cubicsdr_tpu_torch.ops.planar import PC  # noqa: E402
 from cubicsdr_tpu_torch.utils.interop import live_state_from_jax  # noqa: E402
 
 FS = 1_000_000
@@ -45,21 +48,28 @@ def synth_blocks(n=N_BLOCKS, stations=None):
     return [next(src) for _ in range(n)]
 
 
-def build(pkg, freqs=(200e3,)):
+def build(pkg, freqs=(200e3,), complex64=False):
+    """A pipeline of ``freqs`` FM demods and its controls: planar (the
+    port's plain path), or with ``complex64`` each package's complex64
+    pipeline (the JAX package's default)."""
     mgr = pkg.DemodulatorMgr()
     for f in freqs:
         mgr.new_demodulator(100e6 + f, "FM", 200000)
     specs, keyed = pkg.plan_from_manager(mgr)
-    kw = ({"dtype": JPLANAR} if pkg is J
-          else {"device": "cpu", "use_kernels": False})
+    if pkg is J:
+        kw = {} if complex64 else {"dtype": JPLANAR}
+    else:
+        kw = ({"device": "cpu", "dtype": torch.complex64} if complex64
+              else {"device": "cpu", "use_kernels": False})
     rx = pkg.ReceiverPipeline(FS, specs, block_len=L, **kw)
     return rx, pkg.controls_from_manager(mgr, rx, keyed, 100e6)
 
 
-def run_live(Live, pkg, blocks, freqs=(200e3,), setup=None, **kw):
+def run_live(Live, pkg, blocks, freqs=(200e3,), setup=None,
+             complex64=False, **kw):
     """Run ``blocks`` through a fresh receiver; returns (receiver, the
     on_block outputs)."""
-    rx, ctl = build(pkg, freqs)
+    rx, ctl = build(pkg, freqs, complex64)
     got = []
     kw.setdefault("waterfall_fft", 256)
     kw.setdefault("waterfall_lines", LINES)
@@ -185,6 +195,92 @@ def test_views_and_sinks_match_jax(tmp_path):
     np.testing.assert_allclose(lp.demod_spectrum, lj.demod_spectrum,
                                atol=PTS_ATOL)
     assert not [k for k in lp.metrics.notes if "error" in k]
+
+
+def test_complex64_live_receiver_matches_jax(tmp_path):
+    """The live loop around each package's complex64 pipeline: the float32
+    ring assembled as complex64 in the step, the complex distributor,
+    spectrum, demod and zoom views; recordings, mix, waterfall and view
+    points at the tolerances above. The JAX loop runs its step eagerly:
+    jitted, its complex64 NCO ramp departs from the eager one (ROADMAP
+    queue 3), which the port matches."""
+    freqs = (200e3, -300e3)
+    blocks = synth_blocks(stations=[
+        Station(200e3, "fm", audio_freq=1000.0),
+        Station(-300e3, "fm", audio_freq=700.0)])
+    res = {}
+    for name, Live, pkg in (("jax", JLive, J), ("port", LiveReceiver, T)):
+        d = tmp_path / name
+
+        def setup(lr, d=d):
+            lr.set_recording(0, True, path=str(d) + "rec")
+            lr.set_demod_view(1)
+            lr.set_zoom(200e3, 500_000)
+
+        with jax.disable_jit(name == "jax"):
+            lr, got = run_live(Live, pkg, blocks, freqs, setup=setup,
+                               complex64=True)
+        res[name] = (lr, got, read_wav(f"{d}rec_demod0.wav")[0])
+    (lj, gj, wj), (lp, gp, wp) = res["jax"], res["port"]
+    assert not lp.planar and lp.pipeline.dtype == torch.complex64
+    assert_audio_close(wp, wj)
+    for a, b in zip(gp, gj):
+        assert_audio_close(a["mix"], b["mix"])
+    for a, b in ((lp.waterfall.buffer, lj.waterfall.buffer),
+                 (lp.zoom.points, lj.zoom.points),
+                 (lp.demod_spectrum, lj.demod_spectrum)):
+        np.testing.assert_allclose(a[-LINES + 2:] if a.ndim == 2 else a,
+                                   b[-LINES + 2:] if b.ndim == 2 else b,
+                                   atol=PTS_ATOL)
+    assert lp.zoom.chunk == L and not lp.zoom.planar
+    assert counts(lp.metrics.snapshot()) == counts(lj.metrics.snapshot())
+
+
+def test_planar_complex_swap_mid_stream():
+    """A planar receiver swapped to a complex64 plan (two demods) and back
+    while its producer runs: each step sees blocks only in its own
+    representation (the block staged before a swap included), the ring
+    drops nothing, ``on_block`` sees each plan's shapes, the zoom view
+    follows; raw cs16 ingest into a complex64 plan is refused."""
+    rx_p, ctl_p = build(T)
+    rx_c, ctl_c = build(T, (200e3, -300e3), complex64=True)
+    seen = []
+    for rx in (rx_p, rx_c):
+        def apply(st, inputs, rx=rx, orig=rx.apply):
+            seen.append((rx is rx_c, isinstance(inputs[0], PC),
+                         inputs[0].dtype if rx is rx_c else None))
+            return orig(st, inputs)
+        rx.apply = apply
+    got = []
+    lr = LiveReceiver(rx_p, ctl_p, iter(synth_blocks()), waterfall_fft=256,
+                      on_block=lambda o: got.append(
+                          o["groups"][0]["level"].shape))
+    lr.set_zoom(200e3, 500_000)
+    lr.start_producer()
+    assert lr.run_blocks(max_blocks=4) == 4
+    assert lr._staged is not None          # a block staged across the swap
+    lr.swap_pipeline(rx_c, ctl_c)
+    assert not lr.planar and not lr.zoom.planar
+    assert lr.run_blocks(max_blocks=4) == 4
+    lr.swap_pipeline(rx_p, ctl_p)
+    assert lr.planar and lr.zoom.planar
+    assert lr.run_blocks() == 4
+    lr.stop()
+    assert seen == ([(False, True, None)] * 4
+                    + [(True, False, torch.complex64)] * 4
+                    + [(False, True, None)] * 4)
+    assert got == [(1,)] * 4 + [(2,)] * 4 + [(1,)] * 4
+    assert lr.ring.dropped_samples == 0
+    assert counts(lr.metrics.snapshot())["pipeline"] == (N_BLOCKS * L,
+                                                         N_BLOCKS, 0)
+    assert np.isfinite(lr.zoom.points).all()
+    with pytest.raises(ValueError, match="planar"):
+        LiveReceiver(rx_c, ctl_c, iter(()), ingest_dtype=np.int16)
+    lr16 = LiveReceiver(rx_p, ctl_p, iter(()), ingest_dtype=np.int16)
+    with pytest.raises(ValueError, match="planar"):
+        lr16.swap_pipeline(rx_c, ctl_c)
+    assert lr16.pipeline is rx_p
+    lr16.stop()
 
 
 def test_set_display_carries_the_smoothed_display():
