@@ -144,11 +144,28 @@ Phases, each printing one line:
    mixed FM + AM + BPSK sharded step with the reference's shape checks)
    and ``parallel.scaling.measure_scaling`` over 1 rank (NCCL) and 2
    ranks sharing the card (host collectives, gloo on host copies), with
-   the rows printed.
+   the rows printed;
+24. the bench's CUDA graph of K = 8 receive steps
+   (``cubicsdr_tpu_torch.bench.GraphedScan``, the counterpart of the JAX
+   bench's ``jit`` + ``lax.scan``) at demod16, demod256 and scan58 (its
+   six modem kits in one graph), each on 8 blocks of a capture with
+   stations under the demods: two replays against 2K eager steps from
+   the same state, mix, levels, every digital group's symbols and every
+   leaf of the final state within 1e-6, and the capture's launches (the
+   PFB K times, the route kernel K times per fused group); then
+   ``bench.main`` for the demod16, demod256, live16, live16_int16 and
+   live16_int8 rows (graphed and eager MS/s with their medians and
+   spreads over 5 windows, 0 ring drops), printed as they come; the
+   device idle share of demod16, demod256 and scan58, graphed and eager:
+   1 - the profiled device kernel ms per block (``profile_step``, with
+   ``graph=True`` for the graph) over the unprofiled wall ms per block;
+   and ``entry.entry()`` on the card against ``entry("cpu")`` at the
+   pipeline's gates, with one PFB and one route launch.
 
-Then (24) one JSON line describing the kernels (launches on the demod16
+Then (25) one JSON line describing the kernels (launches on the demod16
 main path and on every other path, the CLI's, serve's, the sharded and
-the multihost ranks' and the complex64 paths' (zero) included, error,
+the multihost ranks', the complex64 paths' (zero) and the graph
+captures' included, error,
 cold/warm/plain ms, bound, roofline share, every case; no single
 PyTorch call computes either function, so ``library_ms`` is null),
 and as the last line
@@ -1708,6 +1725,173 @@ def check_scaling(smi: str):
                  "card": smi}
 
 
+GRAPH_ATOL = 1e-6      # a CUDA graph replays the eager step's kernels
+
+
+def graph_step(rx, state, iqs, controls):
+    """The bench's K-block step (``bench.multi_step``) with every digital
+    group's symbols beside the mix and the levels."""
+    from cubicsdr_tpu_torch.ops.planar import PC
+    mixes, levels, symbols = [], [], []
+    for k in range(iqs.re.shape[0]):
+        state, out = rx.apply(state, (PC(iqs.re[k], iqs.im[k]), controls))
+        mixes.append(out["mix"])
+        levels.append(torch.cat([g["level"] for g in out["groups"]], -1))
+        symbols.append([g["symbols"] for g in out["groups"]
+                        if "symbols" in g])
+    return (state, torch.stack(mixes), torch.stack(levels),
+            *(torch.stack(s) for s in zip(*symbols)))
+
+
+def graph_vs_eager(name, rx, iqs, controls) -> dict:
+    """Two replays of the graphed K-block step against 2K eager steps
+    from the same state on the same inputs: every output and every leaf
+    of the final state within GRAPH_ATOL; the capture launches the PFB K
+    times and the route kernel K times per fused group. Then the
+    unprofiled wall ms per block of each, over 3 dispatches after one."""
+    from cubicsdr_tpu_torch.bench import K, GraphedScan, device_controls
+    from cubicsdr_tpu_torch.utils.tree import tree_leaves
+    ctl = device_controls(controls, rx.device)
+    graph = GraphedScan(rx, rx.init_state(), iqs, ctl, step=graph_step)
+    want = {"pfbch2_planar": K,
+            "routed_shifted_resample": K * sum(rx.fused_route)}
+    if graph.launches != want:
+        raise AssertionError(f"{name}: graph captured {graph.launches}, "
+                             f"expected {want}")
+    got = [[o.clone() for o in graph.replay()] for _ in range(2)]
+    st = rx.init_state()
+    eager = []
+    for _ in range(2):
+        st, *outs = graph_step(rx, st, iqs, ctl)
+        eager.append(outs)
+    torch.cuda.synchronize()
+    worst = 0.0
+    pairs = [(g, e) for gs, es in zip(got, eager) for g, e in zip(gs, es)]
+    pairs += list(zip(tree_leaves(graph.state), tree_leaves(st)))
+    for g, e in pairs:
+        if g.shape != e.shape or g.dtype != e.dtype:
+            raise AssertionError(f"{name}: graph output {g.shape} "
+                                 f"{g.dtype} vs eager {e.shape} {e.dtype}")
+        worst = max(worst, float((g.double() - e.double()).abs().max()))
+    if not worst <= GRAPH_ATOL:
+        raise AssertionError(f"{name}: graph vs eager max abs diff {worst}")
+
+    def wall_ms(dispatch):
+        dispatch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dispatch()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / (3 * K) * 1e3
+
+    state = [st]
+
+    def eager_dispatch():
+        state[0], *_ = graph_step(rx, state[0], iqs, ctl)
+
+    return {"max_abs_diff": worst, "outputs_compared": len(pairs),
+            "symbol_groups": len(got[0]) - 2, "capture_launches":
+            graph.launches, "graph_ms_per_block": wall_ms(graph.replay),
+            "eager_ms_per_block": wall_ms(eager_dispatch)}
+
+
+def check_graphs(smi: str):
+    """Phase 24: the bench's CUDA graph of K receive steps on demod16,
+    demod256 and scan58 (all six modem kits in one graph), each against
+    the eager step (``graph_vs_eager``) on K blocks of a synthesised
+    capture with a station under the demods; ``bench.main`` for the
+    demod16, demod256 and live16 rows (printed as they come); each demod
+    row's device idle share, eager and graphed: 1 - the profiled device
+    kernel ms per block (``profile_step``) over the bench's unprofiled
+    wall ms per block; and ``entry()`` on the card against itself on the
+    CPU at the pipeline's gates. Returns (capture launches per path,
+    results)."""
+    from cubicsdr_tpu_torch import bench
+    from cubicsdr_tpu_torch.entry import entry
+    from cubicsdr_tpu_torch.ops.planar import PC
+    from cubicsdr_tpu_torch.utils import profile_step
+    from cubicsdr_tpu_torch.utils.synth import demod_freqs, scan58, synth_fm
+    K = bench.K
+    res, launches = {}, {}
+    iq = synth_fm(demod_freqs(16, spread=15)[:15], K * BLOCK, FS, "cuda",
+                  seed=4).reshape(2, K, BLOCK)
+    for n in (16, 256):
+        rx = build_pipeline(n, "cuda", True)
+        ctl = rx.control_template()
+        ctl[0]["frequency"] = demod_freqs(n, spread=15)
+        r = graph_vs_eager(f"demod{n}", rx, PC(iq[0], iq[1]), ctl)
+        res[f"graph_demod{n}"] = r
+        launches[f"graph_capture_demod{n}"] = r["capture_launches"]
+        line(f"graph demod{n}: {json.dumps(r)} [{smi}]")
+        del rx
+    del iq
+    plan = scan58()
+    rx = plan.pipeline()
+    iq = plan.capture(K * rx.block_len, "cuda", seed=12).reshape(
+        2, K, rx.block_len)
+    r = graph_vs_eager("scan58", rx, PC(iq[0], iq[1]), plan.controls(rx))
+    if r["symbol_groups"] != sum(rx.is_digital):
+        raise AssertionError(f"scan58 graph compared {r['symbol_groups']} "
+                             f"symbol groups of {sum(rx.is_digital)}")
+    res["graph_scan58"] = r
+    launches["graph_capture_scan58"] = r["capture_launches"]
+    line(f"graph scan58: {json.dumps(r)} [{smi}]")
+    del rx, iq
+
+    rows = bench.main(["--only", "demod16", "--only", "demod256",
+                       "--only", "live16", "--only", "live16_i16",
+                       "--only", "live16_i8"])
+    for r in rows:
+        if "live_loop" in r["metric"] and r["ring_dropped_samples"]:
+            raise AssertionError(f"bench row dropped samples: {r}")
+    idle = {}
+    profiles = [(f"demod{n}", lambda g, n=n: profile_step.profile(
+        n, 16, top=4, graph=g)) for n in (16, 256)]
+    profiles.append(("scan58", lambda g: profile_step.profile_plan(
+        "scan58", 16, top=4, graph=g)))
+    walls = {f"demod{n}": next(
+        (r["graph_ms_per_block"], r["eager_ms_per_block"]) for r in rows
+        if r["metric"].endswith(f"demod{n}")) for n in (16, 256)}
+    walls["scan58"] = (res["graph_scan58"]["graph_ms_per_block"],
+                       res["graph_scan58"]["eager_ms_per_block"])
+    for name, prof in profiles:
+        for graphed, wall in zip((True, False), walls[name]):
+            p = prof(graphed)
+            key = f"{name}_{'graph' if graphed else 'eager'}"
+            idle[key] = {
+                "device_ms_per_block": p["device_ms_per_block"],
+                "unprofiled_wall_ms_per_block": wall,
+                "idle_share": 1.0 - p["device_ms_per_block"] / wall,
+                "profiled_wall_ms_per_block": p["wall_ms_per_block"],
+                "profiled_idle_share": p["device_idle_share"],
+                "device_launches_per_block":
+                    p["kernel_launches_per_block"],
+                "top": p["top"]}
+            line(json.dumps({"row": f"idle_{key}", **idle[key],
+                             "card": smi}))
+    res["idle"] = idle
+
+    reset_launches()
+    fn, (st, x) = entry()
+    st, mix, level = fn(st, x)
+    launches["entry"] = read_launches()
+    fn_c, (st_c, x_c) = entry("cpu")
+    _, mix_c, level_c = fn_c(st_c, x_c)
+    if launches["entry"] != {"pfbch2_planar": 1,
+                             "routed_shifted_resample": 1}:
+        raise AssertionError(f"entry() launches {launches['entry']}")
+    worst = {"mix": audio_close(mix.cpu().numpy(), mix_c.numpy(),
+                                "entry() mix"),
+             "level": float((level.cpu() - level_c).abs().max())}
+    if not worst["level"] <= 0.05:
+        raise AssertionError(f"entry() level off by {worst['level']}")
+    res["entry"] = {"block_len": int(x.re.shape[0]),
+                    "mix_shape": list(mix.shape), **worst}
+    line(f"entry() on the card vs the CPU: launches {launches['entry']}, "
+         f"{json.dumps(res['entry'])} [{smi}]")
+    return launches, res, rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1874,6 +2058,7 @@ def main() -> int:
     dry, scaling = check_scaling(smi)
     line(f"dryrun_multichip(1, 'cuda'): {json.dumps(dry)} [{smi}]")
     line(json.dumps(scaling))
+    graph_launches, _, _ = check_graphs(smi)
 
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
@@ -1897,7 +2082,8 @@ def main() -> int:
                     "complex64_pfbch_single_modes": modes_launches.get(
                         name, 0),
                     "complex64_live16": live_c64_launches[name],
-                    "live16_planar_complex64_swap": swap_launches[name]},
+                    "live16_planar_complex64_swap": swap_launches[name],
+                    **{k: v[name] for k, v in graph_launches.items()}},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

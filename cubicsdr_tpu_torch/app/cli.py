@@ -1,7 +1,8 @@
 """Command-line shell — the headless CubicSDR application on the port
 (``cubicsdr_tpu/app/cli.py``).
 
-    python -m cubicsdr_tpu_torch {demod,waterfall,rx,serve,multihost,modems}
+    python -m cubicsdr_tpu_torch {demod,waterfall,rx,serve,multihost,modems,
+                                  bench}
 
 Replaces the wxApp shell (ref: src/CubicSDR.cpp OnInit/OnExit + cmdline
 flags CubicSDR.h:259-268) with subcommands:
@@ -12,6 +13,7 @@ flags CubicSDR.h:259-268) with subcommands:
   serve      live receiver + web UI
   multihost  distributed receive: N processes, each feeding its own span
   modems     list registered modem types + settings schemas
+  bench      the throughput benchmark (``cubicsdr_tpu_torch/bench.py``)
 
 The subcommands that run the receiver take ``--device`` (default
 ``cuda``): they run on the card with both CUDA kernels, and fail where
@@ -22,8 +24,10 @@ sharded receiver on T*C local ranks, one process each: one card per rank
 with NCCL, or CPU ranks with gloo under ``--device cpu``; with it come
 the options only that mode reads (``--fft-size``, ``--checkpoint``,
 ``--record``). ``multihost`` takes ``--devices`` as the device kind
-(``cuda`` or ``cpu``), since each process holds one device. ``bench`` is
-not part of the port yet.
+(``cuda`` or ``cpu``), since each process holds one device. ``bench``
+hands every argument after it to ``cubicsdr_tpu_torch.bench`` (the
+throughput rows: ``--only``, ``--demods``, ``--block``, ``--no-kernels``,
+``--live-blocks``, ``--device``).
 
 Frequency strings accept the reference's forms ("100.1", "100.1M",
 "98700k", raw Hz; ref: CubicSDR.cpp:80-141 frequency parsing).
@@ -474,6 +478,11 @@ def cmd_modems(args):
             print(f"  {n:6s} default_rate={m.default_sample_rate}{extra}")
 
 
+def cmd_bench(args):
+    from cubicsdr_tpu_torch import bench
+    bench.main(args.bench_args)
+
+
 def _device_arg(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card; "
@@ -482,9 +491,9 @@ def _device_arg(p):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The CLI's parser: the JAX package's subcommands and arguments
-    (less ``bench``), with ``--device``; ``multihost --devices`` is the
-    device kind."""
+    """The CLI's parser: the JAX package's subcommands and arguments,
+    with ``--device``; ``multihost --devices`` is the device kind;
+    ``bench`` takes the bench's own arguments (see ``main``)."""
     ap = argparse.ArgumentParser(
         prog="cubicsdr_tpu_torch",
         description="Software radio (CubicSDR capability set) on PyTorch "
@@ -597,11 +606,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     m = sub.add_parser("modems", help="list modem types")
     m.set_defaults(fn=cmd_modems)
+
+    b = sub.add_parser("bench", add_help=False,
+                       help="run the throughput benchmark (its arguments: "
+                            "bench --help)")
+    b.set_defaults(fn=cmd_bench)
     return ap
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = build_parser()
+    if argv[:1] == ["bench"]:
+        # Everything after ``bench`` is the bench's own command line.
+        args = ap.parse_args(argv[:1])
+        args.bench_args = argv[1:]
+    else:
+        args = ap.parse_args(argv)
     return args.fn(args) or 0
 
 

@@ -60,6 +60,14 @@ def pfb_prototype(num_channels: int, taps_per_channel: int = 8,
 
 
 @lru_cache(maxsize=None)
+def halfband_sos(order: int = 6, fc: float = 0.25) -> np.ndarray:
+    """Butterworth IIR lowpass as second-order sections, float32 (the JAX
+    package's stand-in for the reference's IIR halfband in the SSB chain,
+    ref: src/modules/modem/analog/ModemUSB.cpp:10)."""
+    return sps.butter(order, 2 * fc, output="sos").astype(np.float32)
+
+
+@lru_cache(maxsize=None)
 def deemphasis_coeffs(tau_us: float, sample_rate: float) -> tuple:
     """Single-pole FM de-emphasis by the bilinear transform (ref: src/
     modules/modem/analog/ModemFMStereo.cpp:146-160). Returns (b, a),

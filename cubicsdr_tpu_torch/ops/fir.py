@@ -108,3 +108,32 @@ class DelayLine(StreamOp):
         z = xcat([hist, x])
         L = x.shape[-1]
         return xslice(z, slice(L, None)), xslice(z, slice(0, L))
+
+
+class FirDecimator(_Taps):
+    """Streaming FIR + decimate by ``decim`` (ref: liquid's firdecim);
+    each block's length must be a multiple of ``decim``. The history is
+    padded to a multiple of ``decim`` so that output n sits at stream
+    index n * decim, as one-shot ``lfilter(h, 1, x)[::decim]``."""
+
+    def __init__(self, taps, decim: int, batch_shape: tuple = (),
+                 dtype=PLANAR):
+        super().__init__(taps, batch_shape, dtype)
+        self.decim = int(decim)
+        self.hist_len = -(-(self.n_taps - 1) // self.decim) * self.decim
+
+    def init_state(self):
+        return dtype_zeros((*self.batch_shape, self.hist_len), self.dtype,
+                           self.device)
+
+    def apply(self, hist, x):
+        if x.shape[-1] % self.decim:
+            raise ValueError(f"block length {x.shape[-1]} is not a "
+                             f"multiple of decim={self.decim}")
+        z = xcat([hist, x])
+        # The first window ends at the first output position:
+        # y[n] = sum_k h[k] z[hist_len + n*decim - k].
+        start = self.hist_len - (self.n_taps - 1)
+        y = conv1d(xslice(z, slice(start, None)), self.tap_set(),
+                   stride=self.decim)
+        return xtail(z, self.hist_len), y

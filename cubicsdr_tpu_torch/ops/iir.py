@@ -1,5 +1,6 @@
 """IIR filtering without sequential loops (``cubicsdr_tpu/ops/iir.py``):
-the DC blocker and first-order sections (FM de-emphasis).
+the DC blocker, first-order sections (FM de-emphasis) and cascaded biquads
+(``SOSFilter``, on ``affine_scan_2nd_order``).
 
 y[n] = a*y[n-1] + d[n] runs in blocked form: within each tile of T
 samples the zero-state response is ONE [T, T] lower-triangular product
@@ -71,6 +72,38 @@ def affine_scan_1st_order(a: float, d, y_prev, tile: int = 256):
     y = y0 + s_in[..., None] * pw
     y = y.reshape(*d.shape[:-1], n_tiles * T)
     return y[..., :L] if pad else y
+
+
+def affine_scan_2nd_order(m, f, s_prev):
+    """Solve s[n] = M s[n-1] + [f[n], 0] with a constant 2x2 ``m`` along
+    the last axis (a biquad's recurrence). f: [..., L] real or complex64;
+    s_prev: [..., 2] = [y[-1], y[-2]]. Returns (y [..., L], s_last
+    [..., 2]).
+
+    A doubling scan in log2(L) passes: after the pass at distance d each
+    sample holds sum over the last 2d inputs of M^(n-j) v[j], the pass
+    adding M^d times the partial sum d samples back (the powers squared in
+    float64, cast once each); s_prev enters as M s_prev added to v[0]. The
+    JAX package runs an associative scan: the same sums, rounded in
+    another order. Complex data runs the real recurrence on each plane."""
+    if f.is_complex():
+        yr, sr = affine_scan_2nd_order(m, f.real, s_prev.real)
+        yi, si = affine_scan_2nd_order(m, f.imag, s_prev.imag)
+        return torch.complex(yr, yi), torch.complex(sr, si)
+    p = np.asarray(m, np.float64)
+    L = f.shape[-1]
+    mt = torch.as_tensor(p.T, dtype=f.dtype, device=f.device)
+    v = torch.stack([f, torch.zeros_like(f)], dim=-1)          # [..., L, 2]
+    v = torch.cat([v[..., :1, :] + (s_prev @ mt)[..., None, :],
+                   v[..., 1:, :]], dim=-2)
+    d = 1
+    while d < L:
+        pt = torch.as_tensor(p.T, dtype=f.dtype, device=f.device)
+        v = torch.cat([v[..., :d, :], v[..., d:, :] + v[..., :-d, :] @ pt],
+                      dim=-2)
+        p = p @ p
+        d *= 2
+    return v[..., 0], v[..., -1, :]
 
 
 class DCBlocker(StreamOp):
@@ -151,6 +184,42 @@ def compose_first_order(a: float, f, y_end, axis):
     y_end_new = (F ** n_t) * y_end + torch.tensordot(w_all, Es,
                                                       dims=([0], [0]))
     return y, y_end_new
+
+
+class SOSFilter(StreamOp):
+    """Cascaded biquads in scipy's sos layout [n_sections, 6] with
+    streaming state; matches ``scipy.signal.sosfilt`` on the concatenated
+    stream. The sections run one after another, each a numerator FIR and
+    ``affine_scan_2nd_order``. Real float32 (``dtype=torch.float32``) or
+    complex64 data; the coefficients are real."""
+
+    def __init__(self, sos, batch_shape: tuple = (), dtype=torch.float32):
+        super().__init__()
+        sos = np.asarray(sos, np.float64)
+        if sos.ndim != 2 or sos.shape[1] != 6:
+            raise ValueError(f"sos must be [n_sections, 6], got "
+                             f"{sos.shape}")
+        self.sos = sos
+        self.register_buffer("b_taps", torch.from_numpy(
+            sos[:, :3].astype(np.float32)))
+        self.batch_shape = tuple(batch_shape)
+        self.dtype = dtype
+
+    def init_state(self):
+        """Per section: (the last two inputs, [y[-1], y[-2]])."""
+        z = (*self.batch_shape, 2)
+        return tuple((torch.zeros(z, dtype=self.dtype, device=self.device),
+                      torch.zeros(z, dtype=self.dtype, device=self.device))
+                     for _ in range(self.sos.shape[0]))
+
+    def apply(self, state, x):
+        new_state = []
+        for i, (xh, yh) in enumerate(state):
+            _, _, _, _, a1, a2 = self.sos[i]
+            xh, f = fir_block(xh, x, self.b_taps[i])
+            x, yh = affine_scan_2nd_order([[-a1, -a2], [1.0, 0.0]], f, yh)
+            new_state.append((xh, yh))
+        return tuple(new_state), x
 
 
 class FirstOrderIIR(StreamOp):

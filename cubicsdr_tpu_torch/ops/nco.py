@@ -53,8 +53,14 @@ class NCOMixer(StreamOp):
     def apply(self, phase, inputs):
         x, omega = inputs
         L = x.shape[-1]
-        omega = torch.as_tensor(omega, dtype=torch.float32,
-                                device=phase.device).expand(phase.shape)
+        if isinstance(omega, (int, float)):
+            # A scalar (a kit's fixed offset) is filled on the device: no
+            # host upload per block, so a CUDA graph can capture the step.
+            omega = torch.full(phase.shape, omega, dtype=torch.float32,
+                               device=phase.device)
+        else:
+            omega = torch.as_tensor(omega, dtype=torch.float32,
+                                    device=phase.device).expand(phase.shape)
         if not isinstance(x, PC):
             y, _ = mix(x, phase[..., None], omega[..., None])
             return torch.remainder(phase + omega * L, TWO_PI), y

@@ -250,6 +250,14 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             dist.barrier()
+            # The ingest scatter (host span -> this rank's device block)
+            # alone, then the steps with it.
+            t0 = time.perf_counter()
+            for i in range(timed_steps):
+                rx.shard_iq_local(spans[i % 4])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t_scatter = time.perf_counter() - t0
             t0 = time.perf_counter()
             for i in range(timed_steps):
                 state, out = rx.step(state, rx.shard_iq_local(spans[i % 4]),
@@ -259,7 +267,8 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
             dt = time.perf_counter() - t0
             rep["timed"] = {"steps": timed_steps, "wall_s": dt,
                             "aggregate_msps": timed_steps * rx.block_len
-                            / dt / 1e6}
+                            / dt / 1e6, "ingest_scatter_s": t_scatter,
+                            "ingest_scatter_share": t_scatter / dt}
         return rep
     finally:
         dist.destroy_process_group()

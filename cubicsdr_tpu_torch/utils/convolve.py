@@ -69,3 +69,19 @@ def conv1d_grouped(x, hs: torch.Tensor, stride: int = 1,
     y = F.conv1d(x.reshape(-1, C, L), w, stride=stride, dilation=dilation,
                  groups=C)
     return y.reshape(*batch, C, y.shape[-1])
+
+
+def conv1d_multi(x: torch.Tensor, hs: torch.Tensor, stride: int = 1
+                 ) -> torch.Tensor:
+    """One real signal x [..., L] through P real filters hs [P, K] at once
+    (a polyphase bank): [..., P, (L-K)//stride+1]."""
+    if hs.dim() != 2:
+        raise ValueError(f"hs must be [P, K], got {tuple(hs.shape)}")
+    return conv_real(x, hs, stride)
+
+
+def frame_signal(x: torch.Tensor, frame_len: int, hop: int
+                 ) -> torch.Tensor:
+    """[..., L] -> [..., n_frames, frame_len], frames ``hop`` apart (a
+    view of x)."""
+    return x.unfold(-1, frame_len, hop)

@@ -5,6 +5,7 @@ CUDA device.
                                                      [--blocks 10] [--live]
                                                      [--plan scan58]
                                                      [--dtype complex64]
+                                                     [--graph]
 
 Runs ReceiverPipeline with its defaults (planar, both kernels; 8 MS/s,
 FM demods, 1,024,000-sample blocks, device-resident IQ and controls)
@@ -15,6 +16,9 @@ block and the kernels that take the most device time. The profiler slows the hos
 times read above unprofiled ones. ``--plan scan58`` profiles that mixed
 plan (``utils/synth.py``) instead. ``--dtype complex64`` profiles the
 complex64 pipeline (no kernel of the port's own) at the same block.
+``--graph`` profiles the bench's graphed step instead of the eager one:
+K = 8 blocks captured once in a CUDA graph (``bench.GraphedScan``) and
+replayed, so the host dispatches one replay per K blocks (planar only).
 
 ``--live`` profiles the live loop instead (demod16, a back-pressured
 cycling source, 1024-point 64-line waterfall), one line per ring format:
@@ -45,19 +49,19 @@ DTYPES = {"planar": PLANAR, "complex64": torch.complex64}
 
 
 def profile(n_demods: int, n_blocks: int, top: int = 12,
-            dtype: str = "planar") -> dict:
+            dtype: str = "planar", graph: bool = False) -> dict:
     dev = torch.device("cuda", 0)
     rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, n_demods)],
                           block_len=BLOCK, device=dev, dtype=DTYPES[dtype])
     controls = rx.control_template()
     controls[0]["frequency"] = demod_freqs(n_demods)
     iq = synth_fm(demod_freqs(16), BLOCK, FS, dev, seed=3)
-    return {"demods": n_demods, "dtype": dtype,
-            **profile_pipeline(rx, iq, controls, n_blocks, top)}
+    return {"demods": n_demods, "dtype": dtype, "graph": graph,
+            **profile_pipeline(rx, iq, controls, n_blocks, top, graph)}
 
 
 def profile_plan(name: str, n_blocks: int, top: int = 12,
-                 dtype: str = "planar") -> dict:
+                 dtype: str = "planar", graph: bool = False) -> dict:
     """A named plan of ``utils/synth.py`` (scan58), built with the
     pipeline's defaults at the planar pipeline's block length, on one
     block of its capture."""
@@ -66,30 +70,45 @@ def profile_plan(name: str, n_blocks: int, top: int = 12,
     block_len = plan.pipeline(device="cpu").block_len
     rx = plan.pipeline(dtype=DTYPES[dtype], block_len=block_len)
     iq = plan.capture(rx.block_len, rx.device, seed=3)
-    return {"plan": name, "dtype": dtype,
+    return {"plan": name, "dtype": dtype, "graph": graph,
             "demods": sum(g.count for g in plan.specs),
             "block_len": rx.block_len,
-            **profile_pipeline(rx, iq, plan.controls(rx), n_blocks, top)}
+            **profile_pipeline(rx, iq, plan.controls(rx), n_blocks, top,
+                               graph)}
 
 
-def profile_pipeline(rx, iq, controls, n_blocks: int, top: int) -> dict:
+def profile_pipeline(rx, iq, controls, n_blocks: int, top: int,
+                     graph: bool = False) -> dict:
     """Profile ``rx`` stepping over the planes ``iq`` [2, block_len] with
-    device-resident controls, after 3 warm-up blocks."""
-    dev = rx.device
-    controls = [{k: torch.as_tensor(v, device=dev) for k, v in c.items()}
-                for c in controls]
+    device-resident controls, after 3 warm-up blocks; with ``graph``, the
+    bench's CUDA graph of K steps over K copies of the block, replayed
+    ceil(n_blocks / K) times after one warm-up replay."""
+    from cubicsdr_tpu_torch.bench import K, GraphedScan, device_controls
+    controls = device_controls(controls, rx.device)
     blk = (PC(iq[0].contiguous(), iq[1].contiguous())
            if rx.dtype == PLANAR else torch.complex(iq[0], iq[1]))
-    st = rx.init_state()
-    for _ in range(3):
-        st, _ = rx.apply(st, (blk, controls))
+    if graph:
+        scan = GraphedScan(rx, rx.init_state(),
+                           PC(blk.re.expand(K, -1), blk.im.expand(K, -1)),
+                           controls)
+        n_blocks = -(-n_blocks // K) * K
+        step = scan.replay
+        steps = n_blocks // K
+    else:
+        st = [rx.init_state()]
+
+        def step():
+            st[0], _ = rx.apply(st[0], (blk, controls))
+        steps = n_blocks
+    for _ in range(1 if graph else 3):
+        step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_blocks):
-            st, _ = rx.apply(st, (blk, controls))
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     wall_ms = wall / n_blocks * 1e3
@@ -177,7 +196,11 @@ def main() -> int:
                     help="profile a mixed plan of utils/synth.py")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="planar",
                     help="the pipeline's representation")
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the bench's CUDA graph of K steps")
     args = ap.parse_args()
+    if args.graph and (args.live or args.dtype != "planar"):
+        ap.error("--graph profiles the planar receive step only")
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 1
@@ -188,11 +211,12 @@ def main() -> int:
         return 0
     if args.plan:
         print(json.dumps(profile_plan(args.plan, args.blocks,
-                                      dtype=args.dtype)), flush=True)
+                                      dtype=args.dtype, graph=args.graph)),
+              flush=True)
         return 0
     for n in args.demods:
-        print(json.dumps(profile(n, args.blocks, dtype=args.dtype)),
-              flush=True)
+        print(json.dumps(profile(n, args.blocks, dtype=args.dtype,
+                                 graph=args.graph)), flush=True)
     return 0
 
 

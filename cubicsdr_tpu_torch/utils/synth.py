@@ -88,13 +88,13 @@ class CycleSource:
 
 def live_row(rx, ingest_dtype, n_warm: int = 8):
     """The live16 row of the JAX package's ``bench.py:175-258`` on
-    pipeline ``rx``: 16 demods at the bench layout, a cycling noise
+    pipeline ``rx``: its demods at the bench layout, a cycling noise
     source in ring format ``ingest_dtype``, a 1024-point 64-line waterfall
     and a 1 s ring. Returns the running receiver after ``n_warm`` blocks;
     the caller stops it."""
     from cubicsdr_tpu_torch.app.runner import LiveReceiver
     controls = rx.control_template()
-    controls[0]["frequency"] = demod_freqs(16)
+    controls[0]["frequency"] = demod_freqs(rx.groups[0].count)
     src = CycleSource(noise_blocks(rx.block_len, ingest_dtype))
     lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
                       waterfall_lines=64, ring_seconds=1.0,

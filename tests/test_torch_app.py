@@ -321,14 +321,15 @@ def test_cli_modems_listing_equals_jax(capsys):
 
 
 def test_cli_parser_has_the_jax_subcommands_and_device():
-    """Every subcommand of the JAX CLI but bench; --device defaults to the
-    card, and so does multihost's device kind (--devices); rx takes
-    --mesh with the options only that mode reads."""
+    """Every subcommand of the JAX CLI; --device defaults to the card,
+    and so does multihost's device kind (--devices); rx takes --mesh with
+    the options only that mode reads; bench takes the bench's own
+    arguments (tests/test_torch_bench.py)."""
     import argparse
     sub = next(a for a in cli.build_parser()._actions
                if isinstance(a, argparse._SubParsersAction))
     assert set(sub.choices) == {"demod", "waterfall", "rx", "serve",
-                                "multihost", "modems"}
+                                "multihost", "modems", "bench"}
     argv = {"demod": ["x", "-r", "1", "-f", "1"], "waterfall": ["x", "-r",
             "1"], "rx": ["s", "x"], "serve": []}
     for name, args in argv.items():

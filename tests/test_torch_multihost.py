@@ -273,3 +273,24 @@ def test_phase_audio_measure_tells_pitch_from_phase():
     assert _spectrum_distance(turned, want).max() < 0.02
     assert _spectrum_distance(higher, want).max() > 0.5
     assert _spectrum_distance(noise, want).max() > 0.5
+
+
+def test_bench_multihost_row(capsys):
+    """The bench's multihost row on CPU ranks: the 2-process and the
+    1-process jobs timed over 2 steps each, the row's scaling figures
+    from their aggregate rates and each rank's ingest-scatter share."""
+    import json
+
+    from cubicsdr_tpu_torch import bench
+    row = bench.bench_multihost(timed_steps=2, device="cpu")
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == row
+    assert row["metric"] == "iq_msamples_per_sec_multihost_2proc"
+    assert row["value"] > 0 and row["aggregate_msps_1proc"] > 0
+    assert row["scaling_vs_1proc"] == pytest.approx(
+        row["value"] / row["aggregate_msps_1proc"])
+    assert row["efficiency_vs_2x"] == pytest.approx(
+        row["scaling_vs_1proc"] / 2)
+    assert 0 <= row["ingest_scatter_share"]
+    assert row["host_collectives"] is False and row["timed_steps"] == 2
+    assert "share one host's cores" in row["caveat"]

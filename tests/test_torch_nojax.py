@@ -91,6 +91,21 @@ def test_hilbert_scaling_and_dryrun_import_without_jax():
          "import cubicsdr_tpu_torch.parallel.sharded\n" + _CHECK)
 
 
+# The benchmark and the entry points.
+_BENCH_ENTRY = ("cubicsdr_tpu_torch.bench", "cubicsdr_tpu_torch.entry")
+
+
+def test_bench_and_entry_import_without_jax():
+    """The benchmark (its rows import the live loop and the multi-process
+    job when they run) and the entry points (with the dry run they
+    re-export) load neither jax nor any module of the JAX package, and
+    the package walk finds them."""
+    assert set(_BENCH_ENTRY) <= set(_port_modules())
+    _run("import sys\n" + "".join(f"import {m}\n" for m in _BENCH_ENTRY)
+         + "import cubicsdr_tpu_torch.app.runner\n"
+         "import cubicsdr_tpu_torch.parallel.multihost\n" + _CHECK)
+
+
 @pytest.mark.parametrize("module", [
     "cubicsdr_tpu_torch.app.runner", "cubicsdr_tpu_torch.app.checkpoint",
     "cubicsdr_tpu_torch.visual", "cubicsdr_tpu_torch.receiver.manager",
@@ -110,6 +125,7 @@ def test_every_port_module_imports_alone():
     assert "cubicsdr_tpu_torch.io.soapy" in mods
     assert set(_APP_SHELL) <= set(mods), set(_APP_SHELL) - set(mods)
     assert set(_SHARDED) <= set(mods), set(_SHARDED) - set(mods)
+    assert set(_BENCH_ENTRY) <= set(mods), set(_BENCH_ENTRY) - set(mods)
     _run("import sys, importlib\n"
          f"for m in {mods!r}:\n"
          "    importlib.import_module(m)\n" + _CHECK)
@@ -137,6 +153,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     scanned = {str(f.relative_to(ROOT).with_suffix("")).replace("/", ".")
                for f in files}
     assert set(_APP_SHELL) <= scanned, set(_APP_SHELL) - scanned
+    assert set(_BENCH_ENTRY) <= scanned, set(_BENCH_ENTRY) - scanned
     bad = [hit for f in files for hit in _foreign_imports(f)]
     assert not bad, bad
 
