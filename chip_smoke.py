@@ -51,22 +51,25 @@ Phases, each printing one line:
    registered modem runs on the card;
 8. the live loop on scan58's 3 blocks, on the card and the CPU: digital
    symbols reach ``on_block`` as int32 and agree, mixes agree, both
-   kernels launch per block; then scan58's throughput row;
+   kernels launch per block (the loop is compiled: its step replays a
+   CUDA graph per block, and the step's build adds two eager warm-up
+   calls, whose launches count too); then scan58's throughput row;
 9. the live loop (``app.runner.LiveReceiver``: ring -> staged host->device
-   copy -> step -> packed post-step -> one device->host pull) at the same
+   copy -> step -> packed post-step -> one device->host pull; compiled,
+   the step and post-step CUDA graph replays) at the same
    demod16 width: 6 blocks of the 16-station signal with two demods
    recording, a subset audio sink, the demod view on one row, the zoom
    view at +1 MHz / 1 MHz and a 1024-point, 64-line waterfall, checked
    against the same live loop on the CPU (WAVs and mix at the pipeline
    tolerances, waterfall lines at 2e-3, lines per block exactly), for
-   both kernels' launch counts (6 each), no view or sink error and no
-   ring drop;
+   both kernels' launch counts (6 replays and 2 warm-ups each), no view
+   or sink error and no ring drop;
 10. a checkpoint of the live loop's state after 3 blocks, saved, loaded
    into a fresh receiver and run over blocks 4-6: its audio equals the
    uninterrupted run's within 1e-6;
-11. live-loop throughput (the JAX package's ``bench.py`` live rows: a
-   cycling source with back-pressure, 8 warm-up and 40 timed blocks) with
-   float32, int16 and int8 ring formats;
+11. compiled live-loop throughput (the JAX package's ``bench.py`` live
+   rows: a cycling source with back-pressure, 8 warm-up and 40 timed
+   blocks) with float32, int16 and int8 ring formats;
 12. the route kernel at the first stages only the critically sampled
    'pfbch' channelizer fuses, over 128,000-sample channels: BPSK's 1/25
    at 4 demods (its plan fills 219 KB of shared memory), FM-stereo's 1/2
@@ -81,15 +84,19 @@ Phases, each printing one line:
    gates, waterfall lines as drawn, clipped to [0, 1], at 2e-3, NaN at
    the same points), a tone above 40 dB through FM, NBFM
    and AM, and the launches: 1 PFB + 6 route per scan58 block with
-   'pfbch2', 0 + 6 with 'pfbch', neither with 'single';
+   'pfbch2', 0 + 6 with 'pfbch', neither with 'single' (``demod``, ``rx``
+   and ``waterfall`` replay a compiled step per block: one block's worth
+   more for each of its build's two warm-ups);
 14. ``serve`` on the card: a ``WebViewer`` on an ephemeral port around a
    card ``LiveReceiver`` carrying scan58's session over the looped
    capture, driven block by block: GET /api/state, /api/spectrum and
    /api/waterfall.png; POST add (an NBFM demod), set bandwidth, set type
    and remove, each a plan rebuild after which both kernels launch on the
-   next block; the mix and three surviving demods' audio against the same
-   sequence on a CPU harness; the ms from each POST to the end of the
-   first block on the new plan; 0 ring drops.
+   next block (a new plan's first block builds its compiled step; the
+   remove returns to the first plan, whose cached step replays); the mix
+   and three surviving demods' audio against the same sequence on a CPU
+   harness; the ms from each POST to the end of the first block on the
+   new plan, and the capture's ms inside it; 0 ring drops.
 
 15. the route kernel's streaming plan (one tile per batch, the window's
    residue rows read from global memory and the taps staged per pass) at
@@ -137,8 +144,10 @@ Phases, each printing one line:
    subset sink, the demod view, the zoom view at +1 MHz / 1 MHz, a
    1024-point waterfall) against the same loop on the CPU, no kernel
    launch and no ring drop; then a planar card loop swapped mid-stream
-   to the complex64 plan and back: every block reaches each step in that
-   step's representation, the kernels launch on the planar blocks only,
+   to the complex64 plan and back, eager and compiled: every block
+   reaches each step in that step's representation (compiled, each
+   plan's apply runs only in its build, and the return replays the
+   cached planar step), the kernels launch on the planar blocks only,
    no block is dropped;
 23. ``parallel.dryrun.dryrun_multichip(1, "cuda")`` (one NCCL rank: a
    mixed FM + AM + BPSK sharded step with the reference's shape checks)
@@ -152,7 +161,8 @@ Phases, each printing one line:
    stations under the demods: two replays against 2K eager steps from
    the same state, mix, levels, every digital group's symbols and every
    leaf of the final state within 1e-6, and the capture's launches (the
-   PFB K times, the route kernel K times per fused group); then
+   PFB K times, the route kernel K times per fused group; the kernels
+   line reports them per block); then
    ``bench.main`` for the demod16, demod256, live16, live16_int16 and
    live16_int8 rows (graphed and eager MS/s with their medians and
    spreads over 5 windows, 0 ring drops), printed as they come; the
@@ -162,10 +172,37 @@ Phases, each printing one line:
    and ``entry.entry()`` on the card against ``entry("cpu")`` at the
    pipeline's gates, with one PFB and one route launch.
 
-Then (25) one JSON line describing the kernels (launches on the demod16
+25. the compiled against the eager live loop, in turns (windows of 10
+   blocks: compiled, eager, eager, compiled, ... after 8 each, then one
+   profiled window each), on live16 (the demod view and the zoom view
+   on) and scan58 (the demod view on a BPSK row), each receiver fed the
+   same cycled blocks with back-pressure: every host output of every
+   block (mix, levels, symbols), the waterfall and the views bit for bit,
+   MS/s, ms per block, drops, launches and the card's idle share (1 -
+   profiled device ms over unprofiled wall ms per block) of each;
+26. every modem captured: ``apply`` as a ``CompiledStep`` against itself
+   eagerly, bit for bit on every output and the final state over 3
+   blocks (2 for the coverage plans): demod16 and scan58 with 'pfbch2',
+   'pfbch' and 'single', the coverage plans, demod16 and scan58 in
+   complex64, and the live loop's int16 and int8 ingest steps; each
+   slot's graph launches the kernels as one eager block does;
+27. churn on the card: tests/test_churn.py's REST adversary against a
+   compiled live loop carrying scan58's session, a producer at the
+   capture rate (8 MS/s) carrying the survivor's (FM row 0) station,
+   a checkpoint and restore, then three cycles of the same plan edits:
+   per edit that rebuilds the plan its POST ms, the ms to the first
+   block on the new plan, whether a step was built and its capture ms,
+   ``memory_reserved`` and ``memory_allocated``; the consumer alive, 0
+   drops, the survivor's tone in all but one 250 ms window, compiled
+   steps no more than distinct plans and none built in the last cycle,
+   ``memory_reserved`` no higher in the last cycle than in the one
+   before.
+
+Then (28) one JSON line describing the kernels (launches on the demod16
 main path and on every other path, the CLI's, serve's, the sharded and
-the multihost ranks', the complex64 paths' (zero) and the graph
-captures' included, error,
+the multihost ranks', the complex64 paths' (zero), the graph
+captures' (per block), the compiled/eager turns', the captures' (per
+replay) and the churn run's included, error,
 cold/warm/plain ms, bound, roofline share, every case; no single
 PyTorch call computes either function, so ``library_ms`` is null),
 and as the last line
@@ -460,6 +497,14 @@ def run_blocks(rx, blocks, controls):
     return outs, befores
 
 
+def build_warmups(card) -> int:
+    """Eager warm-up calls a compiled step makes before its captures on
+    ``card`` (none on the CPU, where it runs eagerly): real launches,
+    which the kernels' counters count."""
+    from cubicsdr_tpu_torch.utils.compiled import WARMUPS
+    return WARMUPS if torch.device(card).type == "cuda" else 0
+
+
 def reset_launches() -> None:
     from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
     from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
@@ -654,10 +699,13 @@ def check_live(dev):
                 wavs={f: read_pcm16(d / f"{f}.wav")
                       for f in ("rec_demod0", "rec_demod5", "sub")})
         g, c = runs["cuda"], runs["cpu"]
-        if launches != {"pfbch2_planar": LIVE_BLOCKS,
-                        "routed_shifted_resample": LIVE_BLOCKS}:
+        # One replay per block, and the compiled step's two warm-ups.
+        want = LIVE_BLOCKS + build_warmups("cuda")
+        if launches != {"pfbch2_planar": want,
+                        "routed_shifted_resample": want}:
             raise AssertionError(f"live run launches {launches}, expected "
-                                 f"{LIVE_BLOCKS} of each")
+                                 f"{want} of each ({LIVE_BLOCKS} blocks "
+                                 f"and the build's warm-ups)")
         drops = (g["lr"].ring.dropped_samples,
                  g["lr"].metrics.snapshot()["ingest"]["dropped"])
         if drops != (0, 0):
@@ -881,7 +929,9 @@ def check_live_scan58(ctx):
         if n != len(host):
             raise AssertionError(f"{name} live scan58 ran {n} blocks")
         got[name] = seen
-    if launches != {"pfbch2_planar": 3, "routed_shifted_resample": 18}:
+    steps = 3 + build_warmups("cuda")        # 3 replays, 2 warm-ups
+    if launches != {"pfbch2_planar": steps,
+                    "routed_shifted_resample": 6 * steps}:
         raise AssertionError(f"live scan58 launches {launches}")
     worst, n_syms = {"rms": 0.0, "q995": 0.0}, 0
     dig = [gi for gi, d in enumerate(rx_cpu.is_digital) if d]
@@ -971,18 +1021,21 @@ def check_cli(tmp: Path, plan, card: str = "cuda", fused_groups: int = 6):
         return ["demod", cap, "-r", fs, "-c", int(CENTER), "-f",
                 int(CENTER + f), "-m", modem, "-b", bw, *extra]
 
+    warm = build_warmups(card)
+
     def demod_launches(modem, bw):
         """(PFB, route) launches of a one-demod 'pfbch2' plan over the
-        capture: one of each per block of its own length."""
+        capture: one of each per block of its own length, and per
+        warm-up of the compiled step's build."""
         from cubicsdr_tpu_torch.receiver import (
             DemodGroupSpec, ReceiverPipeline)
         rx = ReceiverPipeline(fs, [DemodGroupSpec(modem, bw, 1)],
                               device="cpu")
         if rx.fused_route != [True]:
             raise AssertionError(f"{modem} does not fuse")
-        return (-(-n // rx.block_len),) * 2
+        return (-(-n // rx.block_len) + warm,) * 2
 
-    n_blocks = -(-n // 2_048_000)
+    n_blocks = -(-n // 2_048_000) + warm      # replays and warm-ups
     cases = (  # name, argv, output suffix, tone Hz, (PFB, route) launches
         ("demod_fm", demod("FM", 200000, fm), ".wav", 700.0,
          demod_launches("FM", 200000)),
@@ -1150,7 +1203,7 @@ def check_serve(sess: Path, cap: Path, plan, card: str = "cuda"):
         if len(sp["points"]) != 1024 or png[:8] != b"\x89PNG\r\n\x1a\n":
             raise AssertionError("serve: spectrum or waterfall missing")
         for name, cmd in edits:
-            old = lr.pipeline
+            old, builds = lr.pipeline, lr.step_builds
             t0 = time.perf_counter()
             res = json.loads(http(viewer.port, "/api/control", cmd))
             t1 = time.perf_counter()
@@ -1161,17 +1214,30 @@ def check_serve(sess: Path, cap: Path, plan, card: str = "cuda"):
             launches = read_launches()
             t2 = time.perf_counter()
             groups = len(lr.pipeline.groups)
+            # A new plan's first block builds its compiled step (the
+            # warm-ups launch too); a returning plan (the remove) replays
+            # the step cached for it.
+            built = lr.step_builds - builds
+            steps = 1 + build_warmups(card) * built
             if (lr.pipeline.fused_route != [True] * groups
-                    or launches != {"pfbch2_planar": 1,
-                                    "routed_shifted_resample": groups}):
+                    or launches != {"pfbch2_planar": steps,
+                                    "routed_shifted_resample":
+                                        groups * steps}):
                 raise AssertionError(f"serve {name}: launches {launches} "
-                                     f"for {groups} groups")
+                                     f"for {groups} groups, {built} builds")
             for k in total:
                 total[k] += launches[k]
             summary["rebuilds"].append({
                 "edit": name, "groups": groups, "launches": launches,
+                "step_built": bool(built), "capture_ms":
+                    lr.step.build_ms if built else None,
+                "capture_split_ms":
+                    lr.step.build_split_ms if built else None,
                 "post_ms": (t1 - t0) * 1e3, "first_block_ms": (t2 - t1) * 1e3,
                 "post_to_first_block_ms": (t2 - t0) * 1e3})
+        if summary["rebuilds"][-1]["step_built"]:
+            raise AssertionError("serve: the remove back to the first plan "
+                                 "built a new step")
         drops = (lr.ring.dropped_samples,
                  lr.metrics.snapshot()["pipeline"]["dropped"])
     finally:
@@ -1259,8 +1325,9 @@ def check_cli_wide(tmp: Path, card: str = "cuda"):
             launches, secs = cli_run([*argv, "-o", out, "--device", dev])
             outs[side] = (out, launches, secs)
         (out, launches, secs), (out_c, _, _) = outs["card"], outs["cpu"]
-        if launches != {"pfbch2_planar": n_blocks,
-                        "routed_shifted_resample": n_blocks}:
+        steps = n_blocks + build_warmups(card)
+        if launches != {"pfbch2_planar": steps,
+                        "routed_shifted_resample": steps}:
             raise AssertionError(f"cli {name} launches {launches}")
         a, ra = read_wav(str(out))
         b, rb = read_wav(str(out_c))
@@ -1669,41 +1736,58 @@ def check_live_complex():
                                      "waterfall_lines": g["lines"]}
 
         # A planar card loop swapped to the complex64 plan mid-stream and
-        # back: each step sees only its own representation.
-        rx_p, rx_c = pipe(), pipe(dtype=C64)
-        seen = []
-        for rx in (rx_p, rx_c):
-            def apply(st, inputs, rx=rx, orig=rx.apply):
-                seen.append((rx is rx_c, isinstance(inputs[0], PC)))
-                return orig(st, inputs)
-            rx.apply = apply
-        ctl = rx_p.control_template()
-        ctl[0]["frequency"] = freqs
-        lr = LiveReceiver(rx_p, ctl, iter(blocks), waterfall_fft=1024,
-                          waterfall_lines=64)
-        lr.set_zoom(1e6, 1e6)
-        lr.start_producer()
-        reset_launches()
-        n = lr.run_blocks(max_blocks=2)
-        lr.swap_pipeline(rx_c, ctl)
-        n += lr.run_blocks(max_blocks=2)
-        lr.swap_pipeline(rx_p, ctl)
-        n += lr.run_blocks()
-        swap_launches = read_launches()
-        lr.stop()
-        want = [(False, True)] * 2 + [(True, False)] * 2 + [(False, True)] * 2
-        snap = lr.metrics.snapshot()
-        if (n != LIVE_BLOCKS or seen != want
-                or snap["pipeline"]["dropped"] or lr.ring.dropped_samples):
-            raise AssertionError(f"swap run: {n} blocks, steps saw {seen}, "
-                                 f"{snap['pipeline']}, ring drops "
-                                 f"{lr.ring.dropped_samples}")
-        if swap_launches != {
-                "pfbch2_planar": 4, "routed_shifted_resample": 4}:
-            raise AssertionError(f"swap run launches {swap_launches}")
-        summary["swap"] = {"blocks": n, "planar_blocks": 4,
-                           "complex64_blocks": 2,
-                           "launches": swap_launches, "ring_dropped": 0}
+        # back: each step sees only its own representation. Eager, every
+        # block calls its pipeline's apply; compiled, only each plan's
+        # first block does (two warm-ups and two captures), and the
+        # return to the planar plan replays its cached step.
+        summary["swap"] = {}
+        for compiled in (False, True):
+            rx_p, rx_c = pipe(), pipe(dtype=C64)
+            seen = []
+            for rx in (rx_p, rx_c):
+                def apply(st, inputs, rx=rx, orig=rx.apply):
+                    seen.append((rx is rx_c, isinstance(inputs[0], PC)))
+                    return orig(st, inputs)
+                rx.apply = apply
+            ctl = rx_p.control_template()
+            ctl[0]["frequency"] = freqs
+            lr = LiveReceiver(rx_p, ctl, iter(blocks), waterfall_fft=1024,
+                              waterfall_lines=64, compiled=compiled)
+            lr.set_zoom(1e6, 1e6)
+            lr.start_producer()
+            reset_launches()
+            n = lr.run_blocks(max_blocks=2)
+            lr.swap_pipeline(rx_c, ctl)
+            n += lr.run_blocks(max_blocks=2)
+            lr.swap_pipeline(rx_p, ctl)
+            n += lr.run_blocks()
+            swap_launches = read_launches()
+            lr.stop()
+            if compiled:        # per build: the warm-ups and 2 captures
+                calls = build_warmups("cuda") + 2
+                want = [(False, True)] * calls + [(True, False)] * calls
+            else:
+                want = ([(False, True)] * 2 + [(True, False)] * 2
+                        + [(False, True)] * 2)
+            snap = lr.metrics.snapshot()
+            if (n != LIVE_BLOCKS or seen != want
+                    or snap["pipeline"]["dropped"] or lr.ring.dropped_samples):
+                raise AssertionError(
+                    f"swap run (compiled={compiled}): {n} blocks, steps saw "
+                    f"{seen}, {snap['pipeline']}, ring drops "
+                    f"{lr.ring.dropped_samples}")
+            steps = 4 + build_warmups("cuda") * compiled
+            if swap_launches != {"pfbch2_planar": steps,
+                                 "routed_shifted_resample": steps}:
+                raise AssertionError(f"swap run (compiled={compiled}) "
+                                     f"launches {swap_launches}")
+            if compiled and lr.step_builds != 2:
+                raise AssertionError(f"swap run built {lr.step_builds} "
+                                     f"steps for 2 plans")
+            summary["swap"]["compiled" if compiled else "eager"] = {
+                "blocks": n, "planar_blocks": 4, "complex64_blocks": 2,
+                "apply_calls": len(seen), "launches": swap_launches,
+                "ring_dropped": 0}
     return g["l"], swap_launches, summary
 
 
@@ -1822,7 +1906,10 @@ def check_graphs(smi: str):
         ctl[0]["frequency"] = demod_freqs(n, spread=15)
         r = graph_vs_eager(f"demod{n}", rx, PC(iq[0], iq[1]), ctl)
         res[f"graph_demod{n}"] = r
-        launches[f"graph_capture_demod{n}"] = r["capture_launches"]
+        # Per block: a replay of the K-step graph launches its kernels
+        # once per step.
+        launches[f"graph_capture_demod{n}"] = {
+            k: v / K for k, v in r["capture_launches"].items()}
         line(f"graph demod{n}: {json.dumps(r)} [{smi}]")
         del rx
     del iq
@@ -1835,7 +1922,8 @@ def check_graphs(smi: str):
         raise AssertionError(f"scan58 graph compared {r['symbol_groups']} "
                              f"symbol groups of {sum(rx.is_digital)}")
     res["graph_scan58"] = r
-    launches["graph_capture_scan58"] = r["capture_launches"]
+    launches["graph_capture_scan58"] = {
+        k: v / K for k, v in r["capture_launches"].items()}
     line(f"graph scan58: {json.dumps(r)} [{smi}]")
     del rx, iq
 
@@ -1843,7 +1931,8 @@ def check_graphs(smi: str):
                        "--only", "live16", "--only", "live16_i16",
                        "--only", "live16_i8"])
     for r in rows:
-        if "live_loop" in r["metric"] and r["ring_dropped_samples"]:
+        if "live_loop" in r["metric"] and (
+                r["ring_dropped_samples"] or r["eager_ring_dropped_samples"]):
             raise AssertionError(f"bench row dropped samples: {r}")
     idle = {}
     profiles = [(f"demod{n}", lambda g, n=n: profile_step.profile(
@@ -1891,6 +1980,606 @@ def check_graphs(smi: str):
     line(f"entry() on the card vs the CPU: launches {launches['entry']}, "
          f"{json.dumps(res['entry'])} [{smi}]")
     return launches, res, rows
+
+
+LIVE_TURN = 10          # blocks per timed window of phase 26's turns
+
+
+def host_outputs(o) -> dict:
+    """What ``on_block`` hands the host for one block, copied: the mix and
+    each group's level, symbols, squelch flags and packed audio."""
+    return {"mix": o["mix"].copy(), "groups": [
+        {k: g[k].copy() for k in ("level", "symbols", "squelched", "audio")
+         if k in g} for g in o["groups"]]}
+
+
+def same_outputs(a: list, b: list, what: str) -> int:
+    """Every host output of two runs equal bit for bit (NaN at the same
+    points); returns the number of arrays compared."""
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} blocks vs {len(b)}")
+    n = 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        pairs = [(x["mix"], y["mix"], "mix")]
+        for gi, (gx, gy) in enumerate(zip(x["groups"], y["groups"])):
+            if gx.keys() != gy.keys():
+                raise AssertionError(f"{what} block {i} group {gi}: "
+                                     f"{sorted(gx)} vs {sorted(gy)}")
+            pairs += [(gx[k], gy[k], f"group {gi} {k}") for k in gx]
+        for p, q, name in pairs:
+            if p.dtype != q.dtype or not np.array_equal(p, q,
+                                                        equal_nan=True):
+                raise AssertionError(f"{what} block {i} {name} differs")
+            n += 1
+    return n
+
+
+def live_turns(name, rx, controls, blocks, views, n_warm: int = 8,
+               windows: int = 4) -> tuple[dict, dict]:
+    """Phase 26 on one plan: a compiled and an eager ``LiveReceiver`` on
+    ``rx``, each fed ``blocks`` cycled with back-pressure (so both see
+    the same stream), ``views(lr)`` applied to each; ``n_warm`` blocks
+    each, then ``windows`` timed windows of LIVE_TURN blocks in turns
+    (compiled, eager, eager, compiled, ...), then one profiled window
+    each for the device time. Every host output of every block, the
+    waterfall and the views compared bit for bit. Returns (per mode its
+    launches, the summary)."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+    from cubicsdr_tpu_torch.utils.profile_step import _device_ms
+    from cubicsdr_tpu_torch.utils.synth import CycleSource
+    modes = ("compiled", "eager")
+    lrs, seen = {}, {m: [] for m in modes}
+    for mode in modes:
+        src = CycleSource(blocks)
+        lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
+                          waterfall_lines=64, compiled=mode == "compiled",
+                          on_block=lambda o, s=seen[mode]: s.append(
+                              host_outputs(o)))
+        src.ring = lr.ring
+        views(lr)
+        lrs[mode] = lr
+    launches = {m: {"pfbch2_planar": 0, "routed_shifted_resample": 0}
+                for m in modes}
+    ran = dict.fromkeys(modes, 0)
+
+    def window(mode, n):
+        reset_launches()
+        t0 = time.perf_counter()
+        k = lrs[mode].run_blocks(max_blocks=n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if k != n:
+            raise AssertionError(f"{name} {mode}: {k} of {n} blocks")
+        ran[mode] += k
+        for kk, v in read_launches().items():
+            launches[mode][kk] += v
+        return dt
+
+    secs = {m: [] for m in modes}
+    idle = {}
+    try:
+        for mode in modes:
+            lrs[mode].start_producer()
+            window(mode, n_warm)
+        for w in range(windows):
+            order = modes if w % 2 == 0 else modes[::-1]
+            for mode in order:
+                secs[mode].append(window(mode, LIVE_TURN))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for mode in modes:
+            with torch.profiler.profile(activities=acts) as prof:
+                pwall = window(mode, LIVE_TURN)
+            dev_ms, top = _device_ms(prof, LIVE_TURN, 4)
+            wall_ms = float(np.median(secs[mode])) / LIVE_TURN * 1e3
+            idle[mode] = {"device_ms_per_block": dev_ms,
+                          "wall_ms_per_block": wall_ms,
+                          "idle_share": 1.0 - dev_ms / wall_ms,
+                          "profiled_wall_ms_per_block":
+                              pwall / LIVE_TURN * 1e3, "top": top}
+    finally:
+        for lr in lrs.values():
+            lr.stop()
+    lc, le = lrs["compiled"], lrs["eager"]
+    if not isinstance(lc.step, CompiledStep) or lc.step_builds != 1:
+        raise AssertionError(f"{name}: the compiled loop built "
+                             f"{lc.step_builds} steps")
+    compared = same_outputs(seen["compiled"], seen["eager"], name)
+    for what, a, b in (("waterfall", lc.waterfall.buffer,
+                        le.waterfall.buffer),
+                       ("demod view", lc.demod_spectrum, le.demod_spectrum),
+                       ("zoom", None if lc.zoom is None else lc.zoom.points,
+                        None if le.zoom is None else le.zoom.points)):
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b, equal_nan=True)):
+            raise AssertionError(f"{name}: {what} compiled vs eager differs")
+        compared += a is not None
+    drops = {m: (lr.ring.dropped_samples,
+                 lr.metrics.snapshot()["pipeline"]["dropped"])
+             for m, lr in lrs.items()}
+    if any(d != (0, 0) for d in drops.values()):
+        raise AssertionError(f"{name}: drops {drops}")
+    per = {"pfbch2_planar": 1,
+           "routed_shifted_resample": sum(rx.fused_route)}
+    for mode in modes:
+        steps = ran[mode] + build_warmups("cuda") * (mode == "compiled")
+        want = {k: v * steps for k, v in per.items()}
+        if launches[mode] != want:
+            raise AssertionError(f"{name} {mode}: launches "
+                                 f"{launches[mode]}, expected {want}")
+    rates = {}
+    for mode in modes:
+        ms = [t / LIVE_TURN * 1e3 for t in secs[mode]]
+        msps = [rx.block_len / (m * 1e3) for m in ms]
+        rates[mode] = {"msamples_per_s": float(np.median(msps)),
+                       "msamples_per_s_windows": msps,
+                       "ms_per_block": float(np.median(ms)),
+                       **{k: v for k, v in idle[mode].items() if k != "top"},
+                       "top": idle[mode]["top"],
+                       "blocks": ran[mode], "launches": launches[mode]}
+    return launches, {
+        "block_len": rx.block_len, "blocks_per_window": LIVE_TURN,
+        "windows": windows, "outputs_compared": compared,
+        "bit_for_bit": True, "ring_dropped_samples": 0,
+        "step_capture_ms": lc.step.build_ms,
+        "post_steps_built": lc.post_builds, **rates}
+
+
+def check_compiled_vs_eager(smi: str):
+    """Phase 26: the compiled and the eager live loop in turns on live16
+    (demod16 over the 16-station signal, the demod view on row 4 and the
+    zoom view at +1 MHz / 1 MHz) and on scan58 (its capture, the demod
+    view on BPSK row 1), bit for bit on every host output, with MS/s, ms
+    per block, drops and the card's idle share for each."""
+    from cubicsdr_tpu_torch.utils.synth import scan58
+    freqs, blocks = live_blocks()
+    rx = build_pipeline(16, "cuda", True)
+    ctl = rx.control_template()
+    ctl[0]["frequency"] = freqs
+
+    def views16(lr):
+        lr.set_demod_view(4)
+        lr.set_zoom(1e6, 1e6)
+
+    res, launches = {}, {}
+    launches["live16"], res["live16"] = live_turns(
+        "live16", rx, ctl, blocks[:4], views16)
+    line(f"compiled vs eager live16: {json.dumps(res['live16'])} [{smi}]")
+    del rx
+    plan = scan58()
+    rx = plan.pipeline()
+    cap = plan.capture(4 * rx.block_len, "cuda", seed=13).cpu().numpy()
+    sblocks = [np.ascontiguousarray(cap[:, b * rx.block_len:
+                                        (b + 1) * rx.block_len])
+               for b in range(4)]
+    launches["scan58"], res["scan58"] = live_turns(
+        "scan58", rx, plan.controls(rx), sblocks,
+        lambda lr: lr.set_demod_view(16 * 3 + 4 + 1))
+    line(f"compiled vs eager live scan58: {json.dumps(res['scan58'])} "
+         f"[{smi}]")
+    return launches, res
+
+
+def capture_case(name, rx, step, eager, blocks, controls) -> dict:
+    """One compiled step against its eager function on ``blocks`` from the
+    same state: every output and the final state bit for bit; each
+    slot's graph launches the kernels as one eager block does."""
+    from cubicsdr_tpu_torch.utils.tree import tree_leaves
+    st_c = st_e = rx.init_state()
+    reset_launches()
+    st_e, _ = eager(st_e, (blocks[0], controls))
+    per_block = read_launches()
+    st_e = rx.init_state()
+    n = 0
+    for blk in blocks:
+        st_e, oe = eager(st_e, (blk, controls))
+        st_c, oc = step(st_c, (blk, controls))
+        for a, b in zip(tree_leaves(oe), tree_leaves(oc)):
+            if (a.shape != b.shape or a.dtype != b.dtype
+                    or not torch.equal(a, b)):
+                raise AssertionError(f"{name}: compiled output differs")
+            n += 1
+    for a, b in zip(tree_leaves(st_e), tree_leaves(st_c)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: compiled state differs")
+        n += 1
+    if any(g != per_block for g in step.launches):
+        raise AssertionError(f"{name}: graphs hold {step.launches}, an "
+                             f"eager block launches {per_block}")
+    return {"case": name, "blocks": len(blocks), "compared": n,
+            "max_abs_diff": 0.0, "capture_ms": step.build_ms,
+            "launches_per_replay": per_block}
+
+
+def check_captures(smi: str) -> list[dict]:
+    """Phase 27: every modem captured. Each plan's ``apply`` as a
+    ``CompiledStep`` (the CLI's) against itself eagerly: demod16 and
+    scan58 with 'pfbch2' (both kernels), 'pfbch' and 'single', the
+    coverage plans (every other modem), demod16 and scan58 in complex64,
+    and the live loop's int16 and int8 ingest steps at demod16 against
+    their eager closures, 3 blocks each (2 for the coverage plans)."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.ops.planar import PC
+    from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+    from cubicsdr_tpu_torch.utils.synth import coverage_plans, scan58
+    rows = []
+
+    def planar(x):
+        return [PC(b[0], b[1]) for b in x]
+
+    def complex64(x):
+        return [torch.complex(b[0], b[1]) for b in x]
+
+    def case(name, rx, blocks, controls):
+        ctl = [{k: torch.as_tensor(v, device="cuda") for k, v in c.items()}
+               for c in controls]
+        x = complex64(blocks) if rx.dtype == torch.complex64 else \
+            planar(blocks)
+        r = capture_case(name, rx, CompiledStep(rx.apply, rx.device),
+                         rx.apply, x, ctl)
+        rows.append(r)
+        line(f"capture {json.dumps(r)} [{smi}]")
+
+    freqs, live = live_blocks()
+    d16 = [torch.from_numpy(b).cuda() for b in live[:3]]
+    for dtype in (None, torch.complex64):
+        kw = {} if dtype is None else {"dtype": dtype}
+        rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)],
+                              block_len=BLOCK, **kw)
+        ctl = rx.control_template()
+        ctl[0]["frequency"] = freqs
+        case(f"demod16{'' if dtype is None else '_complex64'}", rx, d16,
+             ctl)
+    plan = scan58()
+    for mode, dtype in (("pfbch2", None), ("pfbch", None), ("single", None),
+                        ("pfbch2", torch.complex64)):
+        kw = {"chan_mode": mode}
+        if dtype is not None:
+            kw.update(dtype=dtype,
+                      block_len=plan.pipeline(device="cpu").block_len)
+        rx = plan.pipeline(**kw)
+        blocks = plan_blocks(plan, 3, rx.block_len, seed=11)
+        case(f"scan58_{mode}{'' if dtype is None else '_complex64'}", rx,
+             blocks, plan.controls(rx))
+    for i, p in enumerate(coverage_plans()):
+        rx = p.pipeline()
+        case(p.name, rx, plan_blocks(p, 2, rx.block_len, 20 + i),
+             p.controls(rx))
+    for dt in (np.int16, np.int8):
+        rx = build_pipeline(16, "cuda", True)
+        ctl = rx.control_template()
+        ctl[0]["frequency"] = freqs
+        full = float(np.iinfo(dt).max + 1)
+        raw = [tuple(torch.from_numpy(np.clip(b * full, -full, full - 1)
+                                      .astype(dt)).cuda())
+               for b in live[:3]]
+        lrs = [LiveReceiver(rx, ctl, iter(()), ingest_dtype=dt,
+                            compiled=c) for c in (True, False)]
+        _, dctl = lrs[1]._device_controls()
+        r = capture_case(f"live16_{np.dtype(dt).name}", rx, lrs[0].step,
+                         lrs[1].step, raw, dctl)
+        for lr in lrs:
+            lr.stop()
+        rows.append(r)
+        line(f"capture {json.dumps(r)} [{smi}]")
+    return rows
+
+
+CHURN_TONE = 700.0      # scan58's FM row 0 station
+
+
+class PacedSource:
+    """The survivor's FM station at ``rate`` samples/s, delivered in
+    chunks of ``chunk`` at their real-time deadlines, as a receiver's SDR
+    delivers: the ring absorbs a stall of the consumer and sheds what
+    overflows it (counted as ingest drops). One second of the station
+    (``io.sources.SyntheticSource``, its carrier and tone whole numbers
+    of cycles per second, so the loop is seamless) is synthesised up
+    front and looped, so that producing costs the host a copy."""
+
+    def __init__(self, rate: float, offset: float, chunk: int = 1 << 16):
+        from cubicsdr_tpu_torch.io.sources import Station, SyntheticSource
+        n = int(rate)
+        if float(offset) != int(offset) or n != rate:
+            raise ValueError("a seamless 1 s loop needs whole-Hz rates")
+        self.loop = next(SyntheticSource(rate, n, [Station(
+            offset, "fm", audio_freq=CHURN_TONE, amplitude=0.5)],
+            noise=0.01, seed=7))
+        self.rate, self.chunk = float(rate), chunk
+        self.stop_flag = False
+        self.late_s = 0.0            # how far the producer fell behind
+
+    def __iter__(self):
+        t0, k, pos, n = time.perf_counter(), 0, 0, self.loop.shape[0]
+        while not self.stop_flag:
+            idx = (pos + np.arange(self.chunk)) % n
+            blk = self.loop[idx]
+            pos = (pos + self.chunk) % n
+            k += 1
+            ahead = t0 + k * self.chunk / self.rate - time.perf_counter()
+            if ahead > 0:
+                time.sleep(ahead)
+            else:
+                self.late_s = max(self.late_s, -ahead)
+            yield blk
+
+    def stop(self):
+        self.stop_flag = True
+
+
+def tone_windows(path: Path, tone: float) -> tuple[int, int]:
+    """(windows holding ``tone``, windows) over 250 ms windows of a PCM16
+    WAV: the peak above 100 Hz within 40 Hz of the tone
+    (tests/test_churn.py's test)."""
+    with wave.open(str(path)) as w:
+        rate = w.getframerate()
+        ch = w.getnchannels()
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    audio = pcm.reshape(-1, ch).mean(axis=1) / 32767.0
+    win = rate // 4
+    f = np.fft.rfftfreq(win, 1.0 / rate)
+    good = 0
+    n_win = audio.size // win
+    for i in range(n_win):
+        x = np.abs(np.fft.rfft(audio[i * win:(i + 1) * win]
+                               * np.hanning(win)))
+        good += bool(abs(f[int(np.argmax(x * (f > 100.0)))] - tone) < 40.0)
+    return good, n_win
+
+
+def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
+                smi: str = ""):
+    """Phase 28: tests/test_churn.py's REST adversary against a compiled
+    live loop carrying ``plan``'s session (scan58 on the card), its
+    producer at the capture rate with the survivor's (FM row 0) station,
+    ``cycles`` cycles of the adversary's plan edits after a checkpoint
+    and restore (each cycle ends by restoring the display's line rate,
+    so that every cycle runs the same plans and views from the same
+    start). Each edit that rebuilds the plan: its POST ms, the ms
+    from the POST's return to the first block dispatched on the new plan
+    (the capture inside it for a new plan), whether a step was built and
+    its capture ms, and ``memory_reserved`` after that block. Fails on a
+    dead consumer, a drop, the survivor's tone missing from more than one
+    250 ms window, more compiled steps than distinct plans, or a last
+    cycle whose ``memory_reserved`` peak is above the cycle's before (the
+    second cycle may still grow a little: a view or recording state the
+    adversary's timing first reaches then builds its post-step, and the
+    caching allocator may split a new segment while ``memory_allocated``
+    stays flat; the last cycle must not). The summary line is printed
+    first. Returns (the kernels' launches over the run, on the card;
+    summary)."""
+    import threading
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.app.webview import WebViewer
+    from cubicsdr_tpu_torch.receiver import (
+        ReceiverPipeline, controls_from_manager, plan_from_manager)
+    mgr = plan.manager(CENTER)
+    specs, keyed = plan_from_manager(mgr)
+    rx = ReceiverPipeline(plan.fs, specs, device=card)
+    src = PacedSource(plan.fs, plan.freqs[0][0])
+    lr = LiveReceiver(rx, controls_from_manager(mgr, rx, keyed, CENTER),
+                      src, center_freq=CENTER, waterfall_fft=1024,
+                      waterfall_lines=64)
+    plans = {(rx.block_len, tuple(rx.groups))}
+    swap = lr.swap_pipeline
+
+    def swap_and_note(pipeline, *a, **kw):
+        plans.add((pipeline.block_len, tuple(pipeline.groups)))
+        return swap(pipeline, *a, **kw)
+
+    lr.swap_pipeline = swap_and_note
+    viewer = WebViewer(lr, mgr, keyed, port=0).start()
+    port = viewer.port
+
+    def post(path, body):
+        res = json.loads(http(port, path, body))
+        if not res.get("ok"):
+            raise AssertionError(f"churn {path} {body}: {res}")
+        return res
+
+    def blocks_at():
+        return lr.metrics.snapshot().get("pipeline", {}).get("blocks", 0)
+
+    consumer_exc = []
+
+    def consume():
+        try:
+            lr.run_blocks()
+        except Exception as e:               # noqa: BLE001 — the check
+            consumer_exc.append(e)
+
+    def wait_blocks(n, timeout=120.0):
+        t0, base = time.time(), blocks_at()
+        while blocks_at() < base + n and time.time() - t0 < timeout:
+            time.sleep(0.002)
+            if consumer_exc:
+                raise consumer_exc[0]
+        if blocks_at() < base + n:
+            raise AssertionError(f"churn: {n} blocks took over {timeout} s")
+
+    edits = []
+
+    def rebuild(name, cycle, path, body):
+        """A plan-changing edit, timed to the first block on the new
+        plan."""
+        builds, old = lr.step_builds, lr.pipeline
+        t0 = time.perf_counter()
+        post(path, body)
+        t1 = time.perf_counter()
+        if lr.pipeline is old:
+            raise AssertionError(f"churn {name}: no rebuild")
+        wait_blocks(1)
+        t2 = time.perf_counter()
+        built = lr.step_builds - builds
+        edits.append({
+            "steps_built_so_far": lr.step_builds,
+            "post_steps_built_so_far": lr.post_builds,
+            "edit": name, "cycle": cycle, "demods": sum(
+                g.count for g in lr.pipeline.groups),
+            "post_ms": (t1 - t0) * 1e3, "first_block_ms": (t2 - t1) * 1e3,
+            "post_to_first_block_ms": (t2 - t0) * 1e3,
+            "step_built": bool(built),
+            "capture_ms": lr.step.build_ms if built else None,
+            "capture_split_ms": lr.step.build_split_ms if built else None,
+            "memory_reserved": (torch.cuda.memory_reserved()
+                                if on_card else None),
+            "memory_allocated": (torch.cuda.memory_allocated()
+                                 if on_card else None),
+            "segments": (torch.cuda.memory_stats().get(
+                "segment.all.current") if on_card else None)})
+
+    wav = tmp / "churn_survivor.wav"
+    lps0 = lr.display_params()["lps"]
+    th = threading.Thread(target=consume, daemon=True)
+    on_card = torch.device(card).type == "cuda"
+    if on_card:
+        reset_launches()
+    # The receiver's first blocks build its step (the first eager calls
+    # of a plan on the card also build the libraries' plans): run three
+    # blocks of the station before the producer starts at capture rate.
+    loop = src.loop.reshape(-1)
+    for b in range(3):
+        blk = loop[b * rx.block_len:(b + 1) * rx.block_len]
+        if not lr.ring.write(np.ascontiguousarray(blk.real),
+                             np.ascontiguousarray(blk.imag)):
+            raise AssertionError("churn: the ring refused a warm-up block")
+    if lr.run_blocks(max_blocks=3, wait=False) != 3:
+        raise AssertionError("churn: the warm-up blocks did not run")
+    posts0 = lr.post_builds
+    t_start = time.perf_counter()
+    lr.start_producer()
+    th.start()
+    try:
+        wait_blocks(2)
+        ck = str(tmp / "churn_ck.json")
+        post("/api/session", {"op": "checkpoint", "path": ck})
+        rebuild("add AM", 0, "/api/control", {
+            "action": "add", "freq": CENTER - 300e3, "type": "AM",
+            "bandwidth": 10000})
+        wait_blocks(1)
+        rebuild("restore", 0, "/api/session", {"op": "restore",
+                                               "path": ck})
+        wait_blocks(1)
+        post("/api/control", {"action": "audio_output", "name": "surv",
+                              "backend": f"wav:{wav}", "demods": [0]})
+        for cycle in range(1, cycles + 1):
+            for it in range(3):
+                rebuild(f"add {('FM', 'AM', 'BPSK')[it]}", cycle,
+                        "/api/control", {
+                            "action": "add", "freq": CENTER - 300e3,
+                            "type": ("FM", "AM", "BPSK")[it],
+                            "bandwidth": (200000, 10000, 20000)[it]})
+                idx = len(mgr.get_demodulators()) - 1
+                wait_blocks(1)
+                if it == 0:
+                    rebuild("set type", cycle, "/api/control", {
+                        "action": "set", "index": idx, "key": "type",
+                        "value": "NBFM"})
+                if it == 1:
+                    rebuild("set bandwidth", cycle, "/api/control", {
+                        "action": "set", "index": idx, "key": "bandwidth",
+                        "value": 12500})
+                for body in (
+                        {"action": "set", "index": 0, "key": "frequency",
+                         "value": CENTER + plan.freqs[0][0] + it},
+                        {"action": "set", "index": idx, "key": "gain",
+                         "value": 0.5}):
+                    post("/api/control", body)
+                if it != 2:
+                    post("/api/control", {
+                        "action": "set", "index": idx, "key": "recording",
+                        "value": True, "path": str(tmp / "rec")})
+                    wait_blocks(1)
+                    post("/api/control", {
+                        "action": "set", "index": idx, "key": "recording",
+                        "value": False})
+                for path, body in (
+                        ("/api/control", {"action": "zoom",
+                                          "offset": 200e3,
+                                          "bandwidth": 250e3}),
+                        ("/api/control", {"action": "display",
+                                          "lps": 20.0 + it}),
+                        ("/api/control", {"action": "ppm", "delta": 1}),
+                        ("/api/bookmarks", {"op": "add", "index": 0,
+                                            "group": "churn"}),
+                        ("/api/control", {"action": "audio_output",
+                                          "name": "chsink",
+                                          "backend": "null", "rate": 44100,
+                                          "demods": [0]}),
+                        ("/api/control", {"action": "audio_solo",
+                                          "index": 0}),
+                        ("/api/control", {"action": "view", "index": 0})):
+                    post(path, body)
+                wait_blocks(2)
+                for body in ({"action": "audio_solo", "index": None},
+                             {"action": "view", "index": None},
+                             {"action": "zoom", "offset": None}):
+                    post("/api/control", body)
+                rebuild("remove", cycle, "/api/control",
+                        {"action": "remove", "index": idx})
+                wait_blocks(1)
+            post("/api/control", {"action": "display", "lps": lps0})
+        wait_blocks(4)
+    finally:
+        src.stop()
+        lr._stop.set()
+        th.join(timeout=30)
+        wall = time.perf_counter() - t_start
+        lr.stop()
+        viewer.stop()
+    launches = read_launches() if on_card else None
+    if consumer_exc:
+        raise AssertionError(f"churn: the consumer died: {consumer_exc!r}")
+    if th.is_alive():
+        raise AssertionError("churn: the consumer hung")
+    snap = lr.metrics.snapshot()
+    drops = {"ingest": int(snap["ingest"]["dropped"]),
+             "pipeline": int(snap["pipeline"]["dropped"])}
+    good, n_win = tone_windows(wav, CHURN_TONE)
+    summary = {"demods": sum(g.count for g in rx.groups),
+               "block_len": rx.block_len, "seconds": wall,
+               "capture_rate_msps": plan.fs / 1e6,
+               "blocks": int(snap["pipeline"]["blocks"]),
+               "msamples_per_s": snap["pipeline"]["samples"] / wall / 1e6,
+               "producer_late_s": src.late_s, "drops": drops,
+               "survivor_tone_windows": [good, n_win],
+               "distinct_plans": len(plans),
+               "steps_built": lr.step_builds,
+               "post_steps_built": lr.post_builds,
+               # On the card each build is one capture per output slot.
+               "captures": (lr.step_builds + lr.post_builds if on_card
+                            else 0), "edits": edits}
+    by_cycle = [[e for e in edits if e["cycle"] == c]
+                for c in range(cycles + 1)]
+    summary["steps_built_by_cycle"] = [sum(e["step_built"] for e in c)
+                                       for c in by_cycle]
+    summary["post_steps_built_by_cycle"] = [
+        c[-1]["post_steps_built_so_far"] - (p[-1]["post_steps_built_so_far"]
+                                            if p else posts0)
+        for p, c in zip([None] + by_cycle, by_cycle)]
+    peak = None
+    if on_card:
+        peak = [max(e["memory_reserved"] for e in c) for c in by_cycle]
+        summary["memory_reserved_peak_by_cycle"] = peak
+        summary["memory_allocated_last_by_cycle"] = [
+            c[-1]["memory_allocated"] for c in by_cycle]
+    line(f"churn {plan.name} on {card}: {json.dumps(summary)} [{smi}]")
+    if any(drops.values()):
+        raise AssertionError(f"churn: drops {drops}")
+    if n_win < 8 or good < n_win - 1:
+        raise AssertionError(f"churn: survivor tone in {good} of {n_win} "
+                             f"windows")
+    if lr.step_builds > len(plans):
+        raise AssertionError(f"churn: {lr.step_builds} compiled steps for "
+                             f"{len(plans)} distinct plans")
+    if cycles >= 2 and summary["steps_built_by_cycle"][-1]:
+        raise AssertionError("churn: the last cycle built compiled steps")
+    if peak is not None and cycles >= 2 and peak[-1] > peak[-2]:
+        raise AssertionError(f"churn: memory_reserved grew in the last "
+                             f"cycle: {peak}")
+    return launches, summary
 
 
 def main() -> int:
@@ -2059,6 +2748,10 @@ def main() -> int:
     line(f"dryrun_multichip(1, 'cuda'): {json.dumps(dry)} [{smi}]")
     line(json.dumps(scaling))
     graph_launches, _, _ = check_graphs(smi)
+    turn_launches, _ = check_compiled_vs_eager(smi)
+    capture_rows = check_captures(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        churn_launches, _ = check_churn(Path(tmp), scan58(), smi=smi)
 
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
@@ -2083,7 +2776,13 @@ def main() -> int:
                         name, 0),
                     "complex64_live16": live_c64_launches[name],
                     "live16_planar_complex64_swap": swap_launches[name],
-                    **{k: v[name] for k, v in graph_launches.items()}},
+                    **{k: v[name] for k, v in graph_launches.items()},
+                    **{f"{plan}_{mode}_turns": v[mode][name]
+                       for plan, v in turn_launches.items()
+                       for mode in v},
+                    **{f"capture_{r['case']}_per_replay":
+                       r["launches_per_replay"][name] for r in capture_rows},
+                    "churn_scan58": churn_launches[name]},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

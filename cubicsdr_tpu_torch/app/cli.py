@@ -27,7 +27,12 @@ the options only that mode reads (``--fft-size``, ``--checkpoint``,
 (``cuda`` or ``cpu``), since each process holds one device. ``bench``
 hands every argument after it to ``cubicsdr_tpu_torch.bench`` (the
 throughput rows: ``--only``, ``--demods``, ``--block``, ``--no-kernels``,
-``--live-blocks``, ``--device``).
+``--live-blocks``, ``--device``). ``demod``, ``rx`` and ``waterfall`` run
+their per-block step as a ``utils/compiled.py`` ``CompiledStep`` (the JAX
+CLI's ``jax.jit``): on the card one CUDA graph replay per block, on the
+CPU the same buffers run eagerly. ``rx --mesh`` stays eager: its
+collectives run between the ranks' steps, and a gloo collective cannot be
+captured in a graph.
 
 Frequency strings accept the reference's forms ("100.1", "100.1M",
 "98700k", raw Hz; ref: CubicSDR.cpp:80-141 frequency parsing).
@@ -96,6 +101,15 @@ def _device_controls(controls, device):
             for c in controls]
 
 
+def _compiled_apply(rx):
+    """``rx.apply`` as a ``CompiledStep`` (the JAX CLI's ``jax.jit(
+    rx.apply)``): on the card a CUDA graph per output slot, captured at
+    the first block (``FileIQSource`` pads the last block, so every block
+    has the plan's length); on the CPU the same buffers, run eagerly."""
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+    return CompiledStep(rx.apply, rx.device)
+
+
 def cmd_demod(args):
     from cubicsdr_tpu_torch.io import FileIQSource, WavWriter
     from cubicsdr_tpu_torch.receiver import (
@@ -116,11 +130,12 @@ def cmd_demod(args):
         controls_from_manager(mgr, rx, keyed, center), rx.device)
     src = FileIQSource(args.input, args.rate, rx.block_len,
                        frequency=center)
+    step = _compiled_apply(rx)
     state = rx.init_state()
     w = WavWriter(args.output, 48000, 1)
     nblocks = 0
     for blk in src:
-        state, out = rx.apply(state, (_planes(blk, rx.device), controls))
+        state, out = step(state, (_planes(blk, rx.device), controls))
         w.write(out["groups"][0]["audio"][0].cpu().numpy())
         nblocks += 1
         if args.max_seconds and nblocks * rx.block_len / args.rate \
@@ -145,11 +160,17 @@ def cmd_waterfall(args):
     sp = PlanarSpectrumProcessor(args.fft_size).to(dev)
     wf = Waterfall(args.fft_size, lines=args.lines, theme=args.theme)
 
-    st_d, st_s = dist.init_state(), sp.init_state()
+    def apply(sts, x):
+        st_d, (frames, valid) = dist.apply(sts[0], x)
+        st_s, out = sp.apply(sts[1], frames, valid=valid)
+        return (st_d, st_s), (out, valid)
+
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+    step = CompiledStep(apply, dev)        # the JAX CLI's jitted step
+    sts = (dist.init_state(), sp.init_state())
     n_lines = 0
     for blk in src:
-        st_d, (frames, valid) = dist.apply(st_d, _planes(blk, dev))
-        st_s, out = sp.apply(st_s, frames, valid=valid)
+        sts, (out, valid) = step(sts, _planes(blk, dev))
         nv = int(valid.sum())
         if nv:
             pts = out["spectrum_points"].cpu().numpy()
@@ -182,6 +203,7 @@ def cmd_rx(args):
     controls = _device_controls(
         controls_from_manager(mgr, rx, keyed, sess.center_freq), rx.device)
     src = FileIQSource(args.input, sess.sample_rate, rx.block_len)
+    step = _compiled_apply(rx)
     state = rx.init_state()
     mix_w = WavWriter(args.output, 48000, 2)
     player = None
@@ -189,7 +211,7 @@ def cmd_rx(args):
         from cubicsdr_tpu_torch.io.audio_out import AudioOutput
         player = AudioOutput(48000, 2, backend=args.play)
     for blk in src:
-        state, out = rx.apply(state, (_planes(blk, rx.device), controls))
+        state, out = step(state, (_planes(blk, rx.device), controls))
         mix = out["mix"].cpu().numpy()
         mix_w.write(mix)
         if player is not None:

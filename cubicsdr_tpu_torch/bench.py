@@ -13,7 +13,8 @@ Six rows, one JSON line each:
   live16    the live loop (``app/runner.py`` ``LiveReceiver``) at the
             demod16 width: a host source with back-pressure, the native
             ring, the staged host->device copy, the step and the packed
-            post-step with its waterfall and audio.
+            post-step with its waterfall and audio; compiled (``value``)
+            and eager (``eager_msps``) in turns.
   live16_i16, live16_i8
             live16 with int16 / int8 ring planes (the CS16 and CS8 wire
             formats), converted to float32 on the device.
@@ -47,8 +48,8 @@ import torch
 
 from cubicsdr_tpu_torch.ops.planar import PC
 from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+from cubicsdr_tpu_torch.utils.compiled import CompiledStep, launch_counts
 from cubicsdr_tpu_torch.utils.synth import demod_freqs
-from cubicsdr_tpu_torch.utils.tree import tree_leaves, tree_map
 
 FS = 8_000_000
 K = 8                   # blocks per dispatch
@@ -97,17 +98,11 @@ def multi_step(rx, state, iqs, controls):
     return state, torch.stack(mixes), torch.stack(levels)
 
 
-def _launch_counts() -> dict:
-    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
-    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
-    return {"pfbch2_planar": pfbch2_planar.launches,
-            "routed_shifted_resample": routed_shifted_resample.launches}
-
-
 class GraphedScan:
     """``step(rx, state, iqs, controls)`` (default ``multi_step``)
     captured once in a CUDA graph: the counterpart of
-    ``jax.jit(lax.scan(...), donate_argnums=0)``.
+    ``jax.jit(lax.scan(...), donate_argnums=0)``, a one-slot
+    ``utils/compiled.py`` ``CompiledStep`` built at construction.
 
     The graph reads static buffers: ``state`` (a copy of the given state),
     ``iqs`` (a PC of [K, L] planes, copied) and ``controls`` (copied to the
@@ -117,50 +112,34 @@ class GraphedScan:
     overwrites. New IQ goes in with ``iqs.re.copy_(...)``.
 
     Two warm-up calls on a side stream, each on a throwaway copy of the
-    state,
-    build what the step builds at its first call (the IIR constants,
-    the route taps, the kernels' shared-memory attribute) before the
-    capture;
-    a capture that meets anything else host-side raises, with no eager
-    fallback. ``launches`` holds the kernel launches captured (the
-    wrappers count calls, so replays do not add to their counts)."""
+    state, build what the step builds at its first call (the IIR
+    constants, the route taps, the kernels' shared-memory attribute)
+    before the capture; a capture that meets anything else host-side
+    raises, with no eager fallback. ``launches`` holds the kernel
+    launches the graph holds (K steps' worth); each replay adds them to
+    the wrappers' counts."""
 
     def __init__(self, rx, state, iqs, controls, step=multi_step):
         if rx.device.type != "cuda":
             raise ValueError("a CUDA graph needs a pipeline on a CUDA "
                              "device; on the CPU call the step eagerly")
-        dev = rx.device
         self.rx, self.step = rx, step
-        self.state = _tree_clone(state)
-        self.iqs = PC(*(x.to(dev).contiguous().clone()
-                        for x in (iqs.re, iqs.im)))
-        self.controls = [{k: v.clone() for k, v in c.items()}
-                         for c in device_controls(controls, dev)]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                step(rx, _tree_clone(self.state), self.iqs, self.controls)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(self.graph):
-            new_state, *self.outputs = step(rx, self.state, self.iqs,
-                                            self.controls)
-            for dst, src in zip(tree_leaves(self.state),
-                                tree_leaves(new_state)):
-                dst.copy_(src)
-        self.launches = {k: v - before[k]
-                         for k, v in _launch_counts().items()}
+
+        def scan(st, inputs):
+            new_state, *outs = step(rx, st, *inputs)
+            return new_state, tuple(outs)
+
+        self._compiled = CompiledStep(scan, rx.device, slots=1)
+        self._compiled.prepare(state, (PC(iqs.re, iqs.im),
+                                       device_controls(controls, rx.device)))
+        self._compiled.build()
+        self.state = self._compiled.state
+        self.iqs, self.controls = self._compiled.inputs
+        self.outputs = self._compiled.outputs[0]
+        self.launches = self._compiled.launches[0]
 
     def replay(self):
-        self.graph.replay()
-        return self.outputs
-
-
-def _tree_clone(tree):
-    return tree_map(lambda t: t.clone(), tree)
+        return self._compiled(self.state, self._compiled.inputs)[1]
 
 
 def _sync(device) -> None:
@@ -277,11 +256,11 @@ def bench_scan(n_demods: int, block_len=None, use_kernels: bool = True,
     for _ in range(WARM_DISPATCHES):
         eager_dispatch()
     _sync(dev)
-    before = _launch_counts()
+    before = launch_counts()
     eager_dispatch()
     _sync(dev)
     eager_launches = {k: (v - before[k]) / K
-                      for k, v in _launch_counts().items()}
+                      for k, v in launch_counts().items()}
     graph = None
     if dev.type == "cuda":
         graph = GraphedScan(rx, rx.init_state(), iqs, ctl)
@@ -320,33 +299,55 @@ def bench_live(n_demods: int = 16, n_blocks: int = 240, block_len=None,
     waiting for ring space) -> ``LiveReceiver.run_blocks`` (staged copy,
     step, packed post-step with a 1024-point waterfall, one pull, the
     fan-out): sustained MS/s over ``n_blocks`` blocks after 8, and the
-    ring's drops. ``ingest_dtype`` int16 / int8 ships wire-width planes
+    ring's drops. Two receivers, compiled (``value``: on the card the
+    step and post-step replay CUDA graphs) and eager (``eager_msps``),
+    run in turns over up to WINDOWS windows of ``n_blocks`` / WINDOWS
+    blocks each. ``ingest_dtype`` int16 / int8 ships wire-width planes
     and converts them on the device."""
     from cubicsdr_tpu_torch.utils.metrics import Metrics
     from cubicsdr_tpu_torch.utils.synth import live_row
     rx, _ = build_pipeline(n_demods, block_len, use_kernels, device)
     ingest = np.dtype(ingest_dtype or np.float32)
-    lr = live_row(rx, ingest.type, n_warm=8)
+    lrs = {}
     try:
-        planes = lr.source.blocks[0]
+        for mode in ("compiled", "eager"):
+            lrs[mode] = live_row(rx, ingest.type, n_warm=8,
+                                 compiled=mode == "compiled")
+            lrs[mode].metrics = Metrics()
+        planes = lrs["compiled"].source.blocks[0]
         wire = (_wire_probe(rx.device, planes)
                 if rx.device.type == "cuda" else None)
-        lr.metrics = Metrics()
-        t0 = time.perf_counter()
-        n = lr.run_blocks(max_blocks=n_blocks)
-        dt = time.perf_counter() - t0
-        snap = lr.metrics.snapshot()
+        windows = min(WINDOWS, n_blocks)
+        per = n_blocks // windows
+        secs = {"compiled": [], "eager": []}
+        blocks = dict.fromkeys(secs, 0)
+        for _ in range(windows):
+            for mode, lr in lrs.items():
+                t0 = time.perf_counter()
+                blocks[mode] += lr.run_blocks(max_blocks=per)
+                secs[mode].append(time.perf_counter() - t0)
+        drops = {m: int(lr.metrics.snapshot()["ingest"]["dropped"])
+                 for m, lr in lrs.items()}
     finally:
-        lr.stop()
+        for lr in lrs.values():
+            lr.stop()
+    if blocks != dict.fromkeys(secs, windows * per):
+        raise AssertionError(f"live row ran {blocks} blocks, expected "
+                             f"{windows * per} each")
     tag = "" if ingest == np.float32 else f"_{ingest.name}"
-    extra = {"demods": n_demods, "block_len": rx.block_len, "blocks": n,
-             "ms_per_block": dt / max(n, 1) * 1e3,
-             "ring_dropped_samples": int(snap["ingest"]["dropped"]),
-             "ingest": ingest.name}
+    compiled = _rates("compiled_", secs["compiled"], per, rx.block_len)
+    extra = {"demods": n_demods, "block_len": rx.block_len,
+             "blocks": blocks["compiled"], "windows": windows,
+             "blocks_per_window": per,
+             "ms_per_block": compiled["compiled_ms_per_block"],
+             "ring_dropped_samples": drops["compiled"],
+             "eager_ring_dropped_samples": drops["eager"],
+             "ingest": ingest.name, **compiled,
+             **_rates("eager_", secs["eager"], per, rx.block_len)}
     if wire is not None:
         extra["wire_mbps_probe_row"] = wire
     return _emit(f"iq_msamples_per_sec_per_chip_live_loop_demod{n_demods}"
-                 f"{tag}", n * rx.block_len / dt / 1e6, rx.device, extra)
+                 f"{tag}", compiled["compiled_msps"], rx.device, extra)
 
 
 def bench_multihost(timed_steps: int = 16, device="cuda") -> dict:

@@ -177,8 +177,12 @@ def pfbch2_planar(z_re, z_im, h_poly, w_re, w_im, c_re, c_im, parity):
         out_re.data_ptr(), out_im.data_ptr(), M, J, n_steps, T, stages, kb,
         build.stream_ptr(z_re))
     build.check_launch(lib, code, "pfbch2_planar_launch")
-    pfbch2_planar.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        pfbch2_planar.captured += 1    # a replay counts it
+    else:
+        pfbch2_planar.launches += 1
     return out_re, out_im
 
 
 pfbch2_planar.launches = 0
+pfbch2_planar.captured = 0

@@ -235,8 +235,12 @@ def routed_shifted_resample(z_re, z_im, chan_idx, omega, phase_w0, rs, toep):
         taps.shape[-1], U, S, W, start, tb, rs_groups, cq, int(keep_e),
         int(stream), build.stream_ptr(z_re))
     build.check_launch(lib, code, "routed_shifted_resample_launch")
-    routed_shifted_resample.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        routed_shifted_resample.captured += 1    # a replay counts it
+    else:
+        routed_shifted_resample.launches += 1
     return out_re, out_im
 
 
 routed_shifted_resample.launches = 0
+routed_shifted_resample.captured = 0

@@ -1,0 +1,235 @@
+"""CompiledStep — the port's counterpart of the JAX package's
+``jax.jit(fn, donate_argnums=(0,))`` around a per-block step.
+
+``fn(state, inputs) -> (state, outputs)`` is a pure step over nests of
+tensors (dicts, tuples, lists and ``PC``; None holds no leaf). A
+``CompiledStep`` owns static buffers for the state, the inputs and the
+outputs:
+
+- a call copies each given state or input leaf into its buffer unless it
+  IS that buffer (the caller hands back the state the last call
+  returned, and may write inputs straight into ``inputs``); a leaf of
+  another shape, or another number of leaves, raises ValueError;
+- it returns ``(state, outputs)``. ``state`` is the state buffers, which
+  now hold the new state: the counterpart of donation;
+- outputs alternate between ``slots`` sets of buffers (default 2), so
+  the outputs of call i stay valid through call i+1 and are overwritten
+  by call i+2. An output that is an input or state buffer (a
+  passthrough) gets its own copy in the slot too. With ``slots=2`` a
+  loop may finish block i-1 after it dispatched block i, as the JAX
+  package's loop does with the fresh buffers each jitted call returns.
+
+On a CUDA device the first call builds the step: ``WARMUPS`` calls on a
+side stream, each on a throwaway copy of the state (they build what the
+step builds at its first call: IIR constants, route taps, cuFFT plans,
+the kernels' shared-memory attribute), then one CUDA graph per slot,
+each with its own memory pool, all reading the shared state and input
+buffers and copying the final state back into the state buffers inside
+the graph. A call then copies its inputs and replays the next slot's
+graph. A capture fault raises; there is no eager fallback. The capture
+runs with ``capture_error_mode="thread_local"``: other threads may use
+the card meanwhile (the live loop's staging worker copies the next block
+to the device; a control thread builds a plan). The kernel wrappers
+count the warm-ups' launches as any launch; what a capture records they
+count as ``captured``, and each replay adds its graph's launches to
+their ``launches``.
+
+On the CPU the same object keeps the same buffer rules: a call runs
+``fn`` eagerly on the buffers and copies its results into the slot's
+output buffers and into the state buffers, so tests on the CPU see the
+aliasing that the card would.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from cubicsdr_tpu_torch.utils.tree import tree_leaves, tree_map
+
+WARMUPS = 2             # eager calls before the captures (bench.py's)
+
+
+def counted_kernels() -> tuple:
+    """The CUDA kernels' wrappers, each with ``launches`` and
+    ``captured`` counters."""
+    from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
+    from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
+    return pfbch2_planar, routed_shifted_resample
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches so far, by name."""
+    return {k.__name__: k.launches for k in counted_kernels()}
+
+
+def _captured_counts() -> dict:
+    return {k.__name__: k.captured for k in counted_kernels()}
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _leaves(tree, what: str) -> list:
+    leaves = tree_leaves(tree)
+    for t in leaves:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{what} leaf {type(t).__name__} is not a "
+                            f"tensor")
+    return leaves
+
+
+def _copy_into(bufs, given, what: str) -> None:
+    """Copy the leaves of ``given`` (tensors or numpy arrays) into the
+    buffers ``bufs``, skipping a leaf that is its buffer."""
+    dst, src = tree_leaves(bufs), tree_leaves(given)
+    if len(dst) != len(src):
+        raise ValueError(f"{what}: {len(src)} leaves, the compiled step "
+                         f"holds {len(dst)}")
+    for d, s in zip(dst, src):
+        if s is d:
+            continue
+        s = torch.as_tensor(s)
+        if tuple(s.shape) != tuple(d.shape):
+            raise ValueError(f"{what}: a leaf of shape {tuple(s.shape)} "
+                             f"for a buffer of {tuple(d.shape)}")
+        d.copy_(s)
+
+
+class CompiledStep:
+    """A compiled per-block step over static buffers (module docstring).
+
+    ``state`` and ``inputs`` are the buffers (None until the first call
+    or ``prepare``); ``outputs[k]`` slot k's outputs; ``launches[k]`` the
+    kernel launches slot k's graph holds (CUDA only); ``build_ms`` the
+    wall ms of the CUDA build (warm-ups and captures) and
+    ``build_split_ms`` its parts (each warm-up, each capture,
+    synchronised)."""
+
+    def __init__(self, fn, device, slots: int = 2):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self.fn = fn
+        self.device = torch.device(device)
+        self.slots = int(slots)
+        self.state = None
+        self.inputs = None
+        self.outputs = [None] * self.slots
+        self.launches = [None] * self.slots
+        self.build_ms = None
+        self.build_split_ms = None
+        self._graphs = None
+        self._next = 0
+
+    def _own(self, x) -> torch.Tensor:
+        t = torch.as_tensor(x)
+        buf = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+        buf.copy_(t)
+        return buf
+
+    def prepare(self, state, inputs) -> None:
+        """Allocate the state and input buffers as copies of ``state``
+        and ``inputs`` (tensors or numpy leaves). Nothing is built."""
+        if self.state is not None:
+            raise RuntimeError("the compiled step's buffers exist already")
+        self.state = tree_map(self._own, state)
+        self.inputs = tree_map(self._own, inputs)
+
+    def build(self) -> None:
+        """(CUDA) Warm up and capture now rather than at the first call;
+        needs the buffers (``prepare``)."""
+        if self.state is None:
+            raise RuntimeError("prepare the buffers before the build")
+        if self.device.type == "cuda" and self._graphs is None:
+            self._build()
+
+    def load_state(self, state) -> None:
+        """Copy ``state`` (tensors or numpy leaves) into the state
+        buffers, in stream order behind the calls already made."""
+        _copy_into(self.state, state, "state")
+
+    def __call__(self, state, inputs):
+        if self.state is None:
+            self.prepare(state, inputs)
+        else:
+            _copy_into(self.state, state, "state")
+            _copy_into(self.inputs, inputs, "inputs")
+        k = self._next
+        self._next = (k + 1) % self.slots
+        if self.device.type == "cuda":
+            if self._graphs is None:
+                self._build()
+            self._graphs[k].replay()
+            for kern in counted_kernels():
+                kern.launches += self.launches[k][kern.__name__]
+            return self.state, self.outputs[k]
+        new_state, out = self.fn(self.state, self.inputs)
+        out = self._keep(k, out)
+        self._write_state(new_state)
+        return self.state, out
+
+    def _keep(self, k: int, out):
+        """(CPU) ``out`` copied into slot k's output buffers."""
+        _leaves(out, "output")
+        if self.outputs[k] is None:
+            self.outputs[k] = tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                      device=t.device), out)
+        _copy_into(self.outputs[k], out, "outputs")
+        return self.outputs[k]
+
+    def _write_state(self, new_state) -> None:
+        """Copy ``new_state`` into the state buffers. A leaf that reads a
+        state buffer other than its own is copied first, so that no copy
+        reads a buffer an earlier copy wrote."""
+        dst = tree_leaves(self.state)
+        src = _leaves(new_state, "state")
+        if len(src) != len(dst):
+            raise ValueError(f"the step returned {len(src)} state leaves "
+                             f"for {len(dst)} buffers")
+        own = {_ptr(t) for t in dst}
+        src = [s.clone() if s is not d and _ptr(s) in own else s
+               for d, s in zip(dst, src)]
+        _copy_into(self.state, src, "new state")
+
+    def _build(self) -> None:
+        """(CUDA) The warm-ups, then one capture per slot."""
+        dev = self.device
+        t0 = time.perf_counter()
+        split = {"warmups": [], "captures": []}
+
+        def lap(part):
+            torch.cuda.synchronize(dev)
+            split[part].append((time.perf_counter() - t0) * 1e3
+                               - sum(map(sum, split.values())))
+
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUPS):
+                self.fn(tree_map(torch.clone, self.state), self.inputs)
+                lap("warmups")
+        cur.wait_stream(side)
+        owned = {_ptr(t) for t in (tree_leaves(self.state)
+                                   + tree_leaves(self.inputs))}
+        graphs, outs, counts = [], [], []
+        for _ in range(self.slots):
+            g = torch.cuda.CUDAGraph()
+            before = _captured_counts()
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                new_state, out = self.fn(self.state, self.inputs)
+                _leaves(out, "output")
+                out = tree_map(
+                    lambda t: t.clone() if _ptr(t) in owned else t, out)
+                self._write_state(new_state)
+            lap("captures")
+            after = _captured_counts()
+            graphs.append(g)
+            outs.append(out)
+            counts.append({n: after[n] - before[n] for n in after})
+        self._graphs, self.outputs, self.launches = graphs, outs, counts
+        self.build_ms = (time.perf_counter() - t0) * 1e3
+        self.build_split_ms = split

@@ -21,7 +21,8 @@ K = 8 blocks captured once in a CUDA graph (``bench.GraphedScan``) and
 replayed, so the host dispatches one replay per K blocks (planar only).
 
 ``--live`` profiles the live loop instead (demod16, a back-pressured
-cycling source, 1024-point 64-line waterfall), one line per ring format:
+cycling source, 1024-point 64-line waterfall; the compiled loop, whose
+step and post-step replay CUDA graphs), one line per ring format:
 first an unprofiled run timed per consumer stage on the host clock (the
 step, the post-step dispatch, the finish with its pull; the rest is the
 wait for the staging worker), then a profiled run for device time and
@@ -39,6 +40,7 @@ import torch
 
 from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
 from cubicsdr_tpu_torch.receiver import DemodGroupSpec, ReceiverPipeline
+from cubicsdr_tpu_torch.utils.compiled import launch_counts
 from cubicsdr_tpu_torch.utils.synth import demod_freqs, synth_fm
 
 FS = 8_000_000
@@ -105,6 +107,7 @@ def profile_pipeline(rx, iq, controls, n_blocks: int, top: int,
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -120,6 +123,11 @@ def profile_pipeline(rx, iq, controls, n_blocks: int, top: int,
             "device_ms_per_block": dev_ms,
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
             "kernel_launches_per_block": launches / n_blocks,
+            # The port's own kernels per block (a replay counts what its
+            # graph holds).
+            "port_kernel_launches_per_block": {
+                k: (v - before[k]) / n_blocks
+                for k, v in launch_counts().items()},
             "top": rows}
 
 
@@ -139,14 +147,15 @@ def _device_ms(prof, n_blocks: int, top: int):
          "launches_per_block": c / n_blocks} for t, c, k in rows[:top]]
 
 
-def profile_live(ingest_dtype, n_blocks: int, top: int = 8) -> dict:
+def profile_live(ingest_dtype, n_blocks: int, top: int = 8,
+                 compiled: bool = True) -> dict:
     import numpy as np
 
     from cubicsdr_tpu_torch.utils.synth import live_row
     dev = torch.device("cuda", 0)
     rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)],
                           use_kernels=True, block_len=BLOCK, device=dev)
-    lr = live_row(rx, ingest_dtype, n_warm=8)
+    lr = live_row(rx, ingest_dtype, n_warm=8, compiled=compiled)
     spent = {"step": 0.0, "post_dispatch": 0.0, "finish": 0.0}
 
     def timed(fn, key):
@@ -178,6 +187,7 @@ def profile_live(ingest_dtype, n_blocks: int, top: int = 8) -> dict:
     dev_ms, rows = _device_ms(prof, n_blocks, top)
     pwall_ms = pwall / n_blocks * 1e3
     return {"row": "live16", "ingest": np.dtype(ingest_dtype).name,
+            "compiled": compiled,
             "wall_ms_per_block": wall / n_blocks * 1e3,
             "host_ms_per_block_by_stage": stages,
             "profiled_wall_ms_per_block": pwall_ms,

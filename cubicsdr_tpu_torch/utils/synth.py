@@ -86,19 +86,19 @@ class CycleSource:
         self.stop_flag = True
 
 
-def live_row(rx, ingest_dtype, n_warm: int = 8):
+def live_row(rx, ingest_dtype, n_warm: int = 8, compiled: bool = True):
     """The live16 row of the JAX package's ``bench.py:175-258`` on
     pipeline ``rx``: its demods at the bench layout, a cycling noise
     source in ring format ``ingest_dtype``, a 1024-point 64-line waterfall
-    and a 1 s ring. Returns the running receiver after ``n_warm`` blocks;
-    the caller stops it."""
+    and a 1 s ring; ``compiled`` is the receiver's. Returns the running
+    receiver after ``n_warm`` blocks; the caller stops it."""
     from cubicsdr_tpu_torch.app.runner import LiveReceiver
     controls = rx.control_template()
     controls[0]["frequency"] = demod_freqs(rx.groups[0].count)
     src = CycleSource(noise_blocks(rx.block_len, ingest_dtype))
     lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
                       waterfall_lines=64, ring_seconds=1.0,
-                      ingest_dtype=ingest_dtype)
+                      ingest_dtype=ingest_dtype, compiled=compiled)
     src.ring = lr.ring
     lr.start_producer()
     lr.run_blocks(max_blocks=n_warm)

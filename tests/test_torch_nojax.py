@@ -106,6 +106,21 @@ def test_bench_and_entry_import_without_jax():
          "import cubicsdr_tpu_torch.parallel.multihost\n" + _CHECK)
 
 
+# The compiled step (the counterpart of jax.jit with donation).
+_COMPILED = ("cubicsdr_tpu_torch.utils.compiled",)
+
+
+def test_compiled_step_imports_without_jax():
+    """The compiled step, with the live loop, the CLI and the bench that
+    build on it, loads neither jax nor any module of the JAX package, and
+    the package walk finds it."""
+    assert set(_COMPILED) <= set(_port_modules())
+    _run("import sys\n" + "".join(f"import {m}\n" for m in _COMPILED)
+         + "import cubicsdr_tpu_torch.app.runner\n"
+         "import cubicsdr_tpu_torch.app.cli\n"
+         "import cubicsdr_tpu_torch.bench\n" + _CHECK)
+
+
 @pytest.mark.parametrize("module", [
     "cubicsdr_tpu_torch.app.runner", "cubicsdr_tpu_torch.app.checkpoint",
     "cubicsdr_tpu_torch.visual", "cubicsdr_tpu_torch.receiver.manager",
@@ -126,6 +141,7 @@ def test_every_port_module_imports_alone():
     assert set(_APP_SHELL) <= set(mods), set(_APP_SHELL) - set(mods)
     assert set(_SHARDED) <= set(mods), set(_SHARDED) - set(mods)
     assert set(_BENCH_ENTRY) <= set(mods), set(_BENCH_ENTRY) - set(mods)
+    assert set(_COMPILED) <= set(mods), set(_COMPILED) - set(mods)
     _run("import sys, importlib\n"
          f"for m in {mods!r}:\n"
          "    importlib.import_module(m)\n" + _CHECK)
@@ -154,6 +170,7 @@ def test_no_source_imports_jax_or_the_jax_package():
                for f in files}
     assert set(_APP_SHELL) <= scanned, set(_APP_SHELL) - scanned
     assert set(_BENCH_ENTRY) <= scanned, set(_BENCH_ENTRY) - scanned
+    assert set(_COMPILED) <= scanned, set(_COMPILED) - scanned
     bad = [hit for f in files for hit in _foreign_imports(f)]
     assert not bad, bad
 

@@ -423,7 +423,9 @@ def test_plan_rebuild_preserves_streaming_state():
             assert lr.pipeline.device.type == "cpu"
             assert lr.pipeline.use_kernels and lr.pipeline.fused_route[0]
         lr.state, out = lr.step(lr.state, (_step_planes(b), lr.controls))
-        got.append(fm_audio(out))
+        # The step's outputs are its compiled step's buffers, reused two
+        # blocks on: keep a copy.
+        got.append(fm_audio(out).copy())
 
     # Post-rebuild blocks: continuous audio (the same arithmetic: exact
     # up to the order of float32 sums).
@@ -1075,8 +1077,9 @@ def test_flip_fsk_bps_and_fms_demph_mid_stream():
             assert dict(lr.pipeline.groups[group_of("FMS")]
                         .settings)["demph"] == 50
         lr.state, out = lr.step(lr.state, (_step_planes(b), lr.controls))
-        got.append(out["groups"][group_of("FM")]["audio"][0].numpy())
-        syms = out["groups"][group_of("FSK")]["symbols"][0].numpy()
+        # Copies: the compiled step reuses its output buffers.
+        got.append(out["groups"][group_of("FM")]["audio"][0].numpy().copy())
+        syms = out["groups"][group_of("FSK")]["symbols"][0].numpy().copy()
         (fsk_after if i >= 3 else fsk_before).append(syms)
 
     for i in (3, 4, 5):
