@@ -198,11 +198,32 @@ Phases, each printing one line:
    ``memory_reserved`` no higher in the last cycle than in the one
    before.
 
-Then (28) one JSON line describing the kernels (launches on the demod16
+28. the compiled zoom view (each zoom level a ``CompiledStep``, built
+   by ``set_zoom`` and, for the levels one step away, a background
+   thread): on live16 (the demod view on row 4) the compiled loop with
+   the compiled zoom and the eager loop with the eager zoom in turns
+   over a walk (+1 MHz at 1 MHz, 500 kHz, 250 kHz, a retune to +1.2
+   MHz, back to 1 MHz and on to 2 MHz, 3 blocks each), every block's
+   zoom points, the view they show and the lines drawn bit for bit,
+   each level built once and the revisit building nothing; live16 with
+   both views in turns, compiled zoom against eager zoom in a compiled
+   loop (ms per block, MS/s, drops, idle share); the zoom gap with a
+   producer at the capture rate (8 MS/s): the ms from ``set_zoom`` to
+   the first block showing the new view for a new view, a prewarmed
+   adjacent level, a retune and a cold level (its build split into
+   warm-ups and captures), the longest consumer block while a
+   background build ran, 0 drops; ``memory_reserved`` and
+   ``memory_allocated`` per level over the 15 reachable levels at
+   live16's and scan58's blocks; the walk on scan58's block (1 MHz,
+   500 kHz, back to 1 MHz) and its zoom gap (a new view, a prewarmed
+   level, a cold level; the longest consumer block at its 256 ms
+   period while a background build ran, 0 drops).
+
+Then (29) one JSON line describing the kernels (launches on the demod16
 main path and on every other path, the CLI's, serve's, the sharded and
 the multihost ranks', the complex64 paths' (zero), the graph
 captures' (per block), the compiled/eager turns', the captures' (per
-replay) and the churn run's included, error,
+replay), the churn run's and the zoom phase's included, error,
 cold/warm/plain ms, bound, roofline share, every case; no single
 PyTorch call computes either function, so ``library_ms`` is null),
 and as the last line
@@ -646,6 +667,7 @@ def run_live(rx, freqs, blocks, out_dir: Path | None, views: bool):
         lr.set_audio_sink("sub", f"wav:{out_dir / 'sub'}", demods=[2, 3])
         lr.set_demod_view(4)
         lr.set_zoom(1e6, 1e6)
+        join_prewarms()          # before the script synchronises the card
     return lr, mixes, lines
 
 
@@ -1754,6 +1776,7 @@ def check_live_complex():
             lr = LiveReceiver(rx_p, ctl, iter(blocks), waterfall_fft=1024,
                               waterfall_lines=64, compiled=compiled)
             lr.set_zoom(1e6, 1e6)
+            join_prewarms()
             lr.start_producer()
             reset_launches()
             n = lr.run_blocks(max_blocks=2)
@@ -1982,7 +2005,7 @@ def check_graphs(smi: str):
     return launches, res, rows
 
 
-LIVE_TURN = 10          # blocks per timed window of phase 26's turns
+LIVE_TURN = 10          # blocks per timed window of phase 25's turns
 
 
 def host_outputs(o) -> dict:
@@ -2015,29 +2038,43 @@ def same_outputs(a: list, b: list, what: str) -> int:
 
 
 def live_turns(name, rx, controls, blocks, views, n_warm: int = 8,
-               windows: int = 4) -> tuple[dict, dict]:
-    """Phase 26 on one plan: a compiled and an eager ``LiveReceiver`` on
+               windows: int = 4, zoom_only: bool = False
+               ) -> tuple[dict, dict]:
+    """Phase 25 on one plan: a compiled and an eager ``LiveReceiver`` on
     ``rx``, each fed ``blocks`` cycled with back-pressure (so both see
     the same stream), ``views(lr)`` applied to each; ``n_warm`` blocks
     each, then ``windows`` timed windows of LIVE_TURN blocks in turns
     (compiled, eager, eager, compiled, ...), then one profiled window
     each for the device time. Every host output of every block, the
-    waterfall and the views compared bit for bit. Returns (per mode its
-    launches, the summary)."""
+    waterfall and the views compared bit for bit. With ``zoom_only``
+    (phase 28) both loops are compiled and only the "eager" one's zoom
+    view steps eagerly. Returns (per mode its launches, the summary)."""
     from cubicsdr_tpu_torch.app.runner import LiveReceiver
     from cubicsdr_tpu_torch.utils.compiled import CompiledStep
     from cubicsdr_tpu_torch.utils.profile_step import _device_ms
     from cubicsdr_tpu_torch.utils.synth import CycleSource
+    from cubicsdr_tpu_torch.visual.spectrum import ZoomSpectrumView
     modes = ("compiled", "eager")
     lrs, seen = {}, {m: [] for m in modes}
     for mode in modes:
         src = CycleSource(blocks)
         lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
-                          waterfall_lines=64, compiled=mode == "compiled",
+                          waterfall_lines=64,
+                          compiled=zoom_only or mode == "compiled",
                           on_block=lambda o, s=seen[mode]: s.append(
                               host_outputs(o)))
         src.ring = lr.ring
+        if zoom_only and mode == "eager":
+            # The stashed view is what set_zoom attaches.
+            lr._zoom_stash = ZoomSpectrumView(
+                rx.sample_rate, rx.block_len, fft_size=1024,
+                device="cuda", dtype=rx.dtype, compiled=False)
         views(lr)
+        join_prewarms()          # before the script synchronises the card
+        if lr.zoom is not None and isinstance(
+                lr.zoom._step, CompiledStep) != (mode == "compiled"):
+            raise AssertionError(f"{name} {mode}: the zoom view's step "
+                                 f"is {type(lr.zoom._step).__name__}")
         lrs[mode] = lr
     launches = {m: {"pfbch2_planar": 0, "routed_shifted_resample": 0}
                 for m in modes}
@@ -2082,9 +2119,10 @@ def live_turns(name, rx, controls, blocks, views, n_warm: int = 8,
         for lr in lrs.values():
             lr.stop()
     lc, le = lrs["compiled"], lrs["eager"]
-    if not isinstance(lc.step, CompiledStep) or lc.step_builds != 1:
-        raise AssertionError(f"{name}: the compiled loop built "
-                             f"{lc.step_builds} steps")
+    for lr in (lc, le) if zoom_only else (lc,):
+        if not isinstance(lr.step, CompiledStep) or lr.step_builds != 1:
+            raise AssertionError(f"{name}: a compiled loop built "
+                                 f"{lr.step_builds} steps")
     compared = same_outputs(seen["compiled"], seen["eager"], name)
     for what, a, b in (("waterfall", lc.waterfall.buffer,
                         le.waterfall.buffer),
@@ -2103,7 +2141,8 @@ def live_turns(name, rx, controls, blocks, views, n_warm: int = 8,
     per = {"pfbch2_planar": 1,
            "routed_shifted_resample": sum(rx.fused_route)}
     for mode in modes:
-        steps = ran[mode] + build_warmups("cuda") * (mode == "compiled")
+        steps = ran[mode] + build_warmups("cuda") * (
+            zoom_only or mode == "compiled")
         want = {k: v * steps for k, v in per.items()}
         if launches[mode] != want:
             raise AssertionError(f"{name} {mode}: launches "
@@ -2127,7 +2166,7 @@ def live_turns(name, rx, controls, blocks, views, n_warm: int = 8,
 
 
 def check_compiled_vs_eager(smi: str):
-    """Phase 26: the compiled and the eager live loop in turns on live16
+    """Phase 25: the compiled and the eager live loop in turns on live16
     (demod16 over the 16-station signal, the demod view on row 4 and the
     zoom view at +1 MHz / 1 MHz) and on scan58 (its capture, the demod
     view on BPSK row 1), bit for bit on every host output, with MS/s, ms
@@ -2193,7 +2232,7 @@ def capture_case(name, rx, step, eager, blocks, controls) -> dict:
 
 
 def check_captures(smi: str) -> list[dict]:
-    """Phase 27: every modem captured. Each plan's ``apply`` as a
+    """Phase 26: every modem captured. Each plan's ``apply`` as a
     ``CompiledStep`` (the CLI's) against itself eagerly: demod16 and
     scan58 with 'pfbch2' (both kernels), 'pfbch' and 'single', the
     coverage plans (every other modem), demod16 and scan58 in complex64,
@@ -2331,7 +2370,7 @@ def tone_windows(path: Path, tone: float) -> tuple[int, int]:
 
 def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
                 smi: str = ""):
-    """Phase 28: tests/test_churn.py's REST adversary against a compiled
+    """Phase 27: tests/test_churn.py's REST adversary against a compiled
     live loop carrying ``plan``'s session (scan58 on the card), its
     producer at the capture rate with the survivor's (FM row 0) station,
     ``cycles`` cycles of the adversary's plan edits after a checkpoint
@@ -2529,6 +2568,7 @@ def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
         wall = time.perf_counter() - t_start
         lr.stop()
         viewer.stop()
+    join_prewarms()
     launches = read_launches() if on_card else None
     if consumer_exc:
         raise AssertionError(f"churn: the consumer died: {consumer_exc!r}")
@@ -2580,6 +2620,394 @@ def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
         raise AssertionError(f"churn: memory_reserved grew in the last "
                              f"cycle: {peak}")
     return launches, summary
+
+
+# Phase 28's zoom walk at live16: +1 MHz at 1 MHz, two zoom-ins, a retune
+# at the same level, then back out to the start (a revisit) and past it
+# (2 MHz, a level the background prewarm built).
+ZOOM_WALK = ((1e6, 1e6), (1e6, 500e3), (1e6, 250e3), (1.2e6, 250e3),
+             (1.2e6, 1e6), (1.2e6, 2e6))
+ZOOM_STAGE = 3          # blocks per stage of the walk
+
+
+def join_prewarms(timeout: float = 120.0) -> None:
+    """Wait for the zoom views' background level builds to end: a
+    device-wide synchronisation (``torch.cuda.synchronize``, as
+    ``reset_launches`` makes) would invalidate a capture in progress on
+    their thread (``utils/compiled.py``)."""
+    import threading
+    for th in threading.enumerate():
+        if th.name == "cs-zoom-prewarm":
+            th.join(timeout)
+            if th.is_alive():
+                raise AssertionError("a background zoom build hung")
+
+
+def zoom_notes(lr) -> list:
+    return [k for k in lr.metrics.notes if k.startswith("zoom_error")]
+
+
+def zoom_walk(name, rx, controls, blocks, walk, card: str = "cuda",
+              per_stage: int = ZOOM_STAGE) -> tuple[dict, dict]:
+    """Phase 28's walk on one plan: the compiled live loop with the
+    compiled zoom view and the eager loop with the eager view, fed the
+    same cycled ``blocks`` with back-pressure, stage by stage in turns
+    (each ``set_zoom`` of ``walk``, the background builds joined, then
+    ``per_stage`` blocks each): every block's zoom points, the view they
+    show and the lines drawn, bit for bit. Each level is built once, the
+    revisited level (the walk's stage 4) builds nothing, and every
+    visited level is built. Returns (launches per mode, summary)."""
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+    from cubicsdr_tpu_torch.utils.synth import CycleSource
+    on_card = torch.device(card).type == "cuda"
+    modes = ("compiled", "eager")
+    lrs, seen = {}, {}
+    launches = {m: {"pfbch2_planar": 0, "routed_shifted_resample": 0}
+                for m in modes}
+    for mode in modes:
+        src = CycleSource(blocks)
+        per = seen[mode] = []
+        lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
+                          waterfall_lines=64, compiled=mode == "compiled")
+        src.ring = lr.ring
+        lr.on_block = lambda o, lr=lr, per=per: per.append(
+            None if lr.zoom is None or lr.zoom.points is None else
+            (lr.zoom.points.copy(), lr.zoom.points_view, lr.zoom.lines))
+        lrs[mode] = lr
+    builds_after = []
+    try:
+        for lr in lrs.values():
+            lr.start_producer()
+        for off, bw in walk:
+            for mode, lr in lrs.items():
+                if on_card:
+                    reset_launches()
+                lr.set_zoom(off, bw)
+                join_prewarms()
+                if lr.run_blocks(max_blocks=per_stage) != per_stage:
+                    raise AssertionError(f"zoom {name} {mode}: short run")
+                if on_card:
+                    for k, v in read_launches().items():
+                        launches[mode][k] += v
+            builds_after.append(lrs["compiled"].zoom.level_builds)
+    finally:
+        for lr in lrs.values():
+            lr.stop()
+    zc, ze = lrs["compiled"].zoom, lrs["eager"].zoom
+    if not isinstance(zc._step, CompiledStep) or isinstance(
+            ze._step, CompiledStep):
+        raise AssertionError(f"zoom {name}: compiled {type(zc._step)}, "
+                             f"eager {type(ze._step)}")
+    a, b = seen["compiled"], seen["eager"]
+    if len(a) != len(walk) * per_stage or len(a) != len(b):
+        raise AssertionError(f"zoom {name}: {len(a)} vs {len(b)} blocks")
+    compared = 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        if (x is None) != (y is None) or (x is not None and (
+                x[0].dtype != y[0].dtype or x[1:] != y[1:]
+                or not np.array_equal(x[0], y[0], equal_nan=True))):
+            raise AssertionError(f"zoom {name} block {i}: compiled vs "
+                                 f"eager zoom differs")
+        compared += x is not None
+    if compared < len(a) - per_stage:
+        raise AssertionError(f"zoom {name}: points on {compared} blocks")
+    views = [v for v in (x[1] for x in a if x is not None)]
+    stage_views = {(off, zc._snap_bw(bw)) for off, bw in walk}
+    if set(views) != stage_views:
+        raise AssertionError(f"zoom {name}: views shown {set(views)}, "
+                             f"walked {stage_views}")
+    built = {lv.bw: lv for lv in zc._front_cache.values() if lv.built}
+    visited = {zc._snap_bw(bw) for _, bw in walk}
+    if (zc.level_builds - zc.level_evictions != len(built)
+            or not visited <= set(built)):
+        raise AssertionError(f"zoom {name}: {zc.level_builds} builds, "
+                             f"{zc.level_evictions} evicted, built "
+                             f"{sorted(built)}, visited {sorted(visited)}")
+    revisit = next(i for i in range(2, len(walk))
+                   if zc._snap_bw(walk[i][1]) in {
+                       zc._snap_bw(w) for _, w in walk[:i - 1]})
+    if builds_after[revisit] != builds_after[revisit - 1]:
+        raise AssertionError(f"zoom {name}: the revisit at stage {revisit} "
+                             f"built {builds_after}")
+    bad = zoom_notes(lrs["compiled"]) + zoom_notes(lrs["eager"])
+    drops = {m: (lr.ring.dropped_samples,
+                 lr.metrics.snapshot()["pipeline"]["dropped"])
+             for m, lr in lrs.items()}
+    if bad or any(d != (0, 0) for d in drops.values()):
+        raise AssertionError(f"zoom {name}: notes {bad}, drops {drops}")
+    if on_card:
+        per = {"pfbch2_planar": 1,
+               "routed_shifted_resample": sum(rx.fused_route)}
+        for mode in modes:
+            steps = len(a) + build_warmups(card) * (mode == "compiled")
+            want = {k: v * steps for k, v in per.items()}
+            if launches[mode] != want:
+                raise AssertionError(f"zoom {name} {mode}: launches "
+                                     f"{launches[mode]}, expected {want}")
+    return launches, {
+        "block_len": rx.block_len, "walk": [list(w) for w in walk],
+        "blocks_per_stage": per_stage, "blocks_compared": compared,
+        "bit_for_bit": True, "drops": 0,
+        "levels_visited": sorted(visited),
+        "levels_built": sorted(built), "level_builds": zc.level_builds,
+        "level_evictions": zc.level_evictions,
+        "builds_after_stage": builds_after,
+        "revisit_stage": revisit, "lines": zc.lines,
+        "build_ms": {f"{bw:g}": lv.step.build_ms
+                     for bw, lv in sorted(built.items())},
+        "build_split_ms": {f"{bw:g}": lv.step.build_split_ms
+                           for bw, lv in sorted(built.items())}}
+
+
+ZOOM_GAP_CASES = (("new view, cold level", 1e6, 1e6),
+                  ("prewarmed adjacent level", 1e6, 500e3),
+                  ("retune at the same level", 1.2e6, 500e3),
+                  ("cold level", 1.2e6, 62_500.0),
+                  ("prewarmed adjacent level", 1.2e6, 125e3))
+
+
+def zoom_gap(name, rx, controls, smi: str,
+             zooms=ZOOM_GAP_CASES) -> dict:
+    """Phase 28's zoom gap: a compiled live loop on ``rx`` fed by a
+    producer at the capture rate (8 MS/s, an FM station at +1.1 MHz),
+    its consumer on a thread, zoomed from the control thread through
+    ``zooms`` (case, offset, bandwidth): the ms from ``set_zoom`` to the
+    end of the first block whose points show the new view, for a new
+    view's first level (cold), a prewarmed adjacent level, a retune at
+    the same level and a cold level (its build split into warm-ups and
+    captures), with ``set_zoom``'s own ms; each consumer block's ms from
+    its dispatch to the end of its fan-out, the longest one while a
+    background build ran (each background build timed here, around
+    ``CompiledStep.build``); 0 drops, no zoom error noted, the consumer
+    alive."""
+    import threading
+    from cubicsdr_tpu_torch.app.runner import LiveReceiver
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+    spans = []
+    build = CompiledStep.build
+
+    def timed_build(step, background=False):
+        t = time.perf_counter()
+        build(step, background)
+        if background:
+            spans.append((t, time.perf_counter()))
+
+    src = PacedSource(FS, 1_100_000)
+    lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
+                      waterfall_lines=64)
+    shown, dispatched, exc = [], [], []
+    lr.on_block = lambda o: shown.append((
+        time.perf_counter(), None if lr.zoom is None
+        else lr.zoom.points_view))
+    dispatch = lr._fanout_dispatch
+
+    def timed_dispatch(*a):
+        dispatched.append(time.perf_counter())
+        return dispatch(*a)
+
+    lr._fanout_dispatch = timed_dispatch
+
+    def consume():
+        try:
+            lr.run_blocks()
+        except Exception as e:               # noqa: BLE001 — the check
+            exc.append(e)
+
+    def wait_view(view, t0, timeout=30.0):
+        while time.perf_counter() - t0 < timeout:
+            if exc:
+                raise exc[0]
+            hit = [t for t, v in list(shown) if t > t0 and v == view]
+            if hit:
+                return hit[0]
+            time.sleep(0.001)
+        raise AssertionError(f"zoom gap {name}: no block showed {view}")
+
+    cases = []
+
+    def zoom(case, off, bw):
+        z = lr.zoom
+        cold = z is None or not any(
+            lv.built and lv.bw == z._snap_bw(bw)
+            for lv in z._front_cache.values())
+        t0 = time.perf_counter()
+        lr.set_zoom(off, bw)
+        t1 = time.perf_counter()
+        z = lr.zoom
+        t2 = wait_view((off, z.resample_bw), t0)
+        lv = z._level
+        cases.append({
+            "case": case, "offset": off, "bandwidth": z.resample_bw,
+            "level_was_built": not cold,
+            "set_zoom_ms": (t1 - t0) * 1e3,
+            "set_zoom_to_points_ms": (t2 - t0) * 1e3,
+            "build_ms": lv.step.build_ms if cold else None,
+            "build_split_ms": lv.step.build_split_ms if cold else None})
+        t_join = time.perf_counter()
+        join_prewarms()
+        mine = [(a, b) for a, b in spans if a >= t0]
+        cases[-1]["background_builds"] = len(mine)
+        cases[-1]["background_build_ms"] = [(b - a) * 1e3
+                                             for a, b in mine]
+        cases[-1]["join_ms"] = (time.perf_counter() - t_join) * 1e3
+        time.sleep(0.5)
+
+    th = threading.Thread(target=consume, daemon=True)
+    CompiledStep.build = timed_build
+    lr.start_producer()
+    th.start()
+    try:
+        t_start = time.perf_counter()
+        while len(shown) < 4 and time.perf_counter() - t_start < 60:
+            if exc:
+                raise exc[0]
+            time.sleep(0.01)
+        for case in zooms:
+            zoom(*case)
+    finally:
+        src.stop()
+        lr._stop.set()
+        th.join(timeout=30)
+        lr.stop()
+        CompiledStep.build = build
+    if exc:
+        raise AssertionError(f"zoom gap {name}: the consumer died: "
+                             f"{exc[0]!r}")
+    if th.is_alive():
+        raise AssertionError(f"zoom gap {name}: the consumer hung")
+    ends = [t for t, _ in shown]
+    busy = [(d, e - d) for d, e in zip(dispatched, ends)]
+    during = [b for d, b in busy
+              if any(a <= d + b and d <= e for a, e in spans)]
+    snap = lr.metrics.snapshot()
+    drops = {"ring": lr.ring.dropped_samples,
+             "ingest": int(snap["ingest"]["dropped"]),
+             "pipeline": int(snap["pipeline"]["dropped"])}
+    bad = zoom_notes(lr)
+    if bad or any(drops.values()):
+        raise AssertionError(f"zoom gap {name}: notes {bad}, drops {drops}")
+    return {"plan": name, "capture_rate_msps": FS / 1e6,
+            "block_len": rx.block_len,
+            "block_period_ms": rx.block_len / FS * 1e3,
+            "blocks": len(busy), "drops": 0, "cases": cases,
+            "consumer_block_ms_median": float(np.median(
+                [b for _, b in busy])) * 1e3,
+            "consumer_block_ms_max": max(b for _, b in busy) * 1e3,
+            "consumer_blocks_during_background_builds": len(during),
+            "consumer_block_ms_max_during_background_builds":
+                max(during) * 1e3 if during else None,
+            "producer_late_s": src.late_s, "card": smi}
+
+
+def zoom_memory(block_len: int, keep: int | None = None,
+                rate: float = FS) -> dict:
+    """Phase 28's memory: one compiled zoom view on the card at
+    ``block_len``, each of its 15 reachable levels (``rate`` / 2^k, k =
+    0..14) built in turn, ``memory_reserved`` and ``memory_allocated``
+    before and after each build (the caching allocator emptied first),
+    keeping at most ``keep`` levels (None: the view's ``ZOOM_LEVELS``;
+    15 measures what every level would hold without the bound). Earlier
+    phases' garbage is collected first: freed during the measurement, it
+    would leave the cache at a capture's ``empty_cache``."""
+    import gc
+    from cubicsdr_tpu_torch.visual import spectrum
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r00, a00 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    bound = spectrum.ZOOM_LEVELS
+    spectrum.ZOOM_LEVELS = bound if keep is None else keep
+    try:
+        z = spectrum.ZoomSpectrumView(rate, block_len, fft_size=1024,
+                                      device="cuda")
+        rows = []
+        for k in range(15):
+            bw = rate / (1 << k)
+            torch.cuda.synchronize()
+            r0 = torch.cuda.memory_reserved()
+            a0 = torch.cuda.memory_allocated()
+            z.prewarm_level(bw)
+            torch.cuda.synchronize()
+            r1 = torch.cuda.memory_reserved()
+            a1 = torch.cuda.memory_allocated()
+            lv = z._make_front(bw)
+            rows.append({"bandwidth": bw, "chunk": lv.chunk,
+                         "reserved_mb": (r1 - r0) / 1e6,
+                         "allocated_mb": (a1 - a0) / 1e6,
+                         "build_ms": lv.step.build_ms})
+            del lv
+        torch.cuda.synchronize()
+        out = {"block_len": block_len,
+               "levels_kept_at_most": spectrum.ZOOM_LEVELS,
+               "levels_built": z.level_builds,
+               "levels_evicted": z.level_evictions,
+               "reserved_mb_after_15_levels":
+                   (torch.cuda.memory_reserved() - r00) / 1e6,
+               "allocated_mb_after_15_levels":
+                   (torch.cuda.memory_allocated() - a00) / 1e6,
+               "per_level": rows}
+        z.close()
+    finally:
+        spectrum.ZOOM_LEVELS = bound
+    return out
+
+
+def check_zoom(smi: str) -> dict:
+    """Phase 28: the compiled zoom view. The walk at live16 (demod16 over
+    the 16-station signal, the demod view on row 4) and at scan58's
+    block (two levels), compiled against eager bit for bit; live16 with
+    both views in turns, the compiled zoom against the eager zoom in a
+    compiled loop; the zoom gap at the capture rate on both; memory per
+    level at live16's and scan58's blocks. Returns the kernels' launches
+    by run."""
+    from cubicsdr_tpu_torch.utils.synth import scan58
+    t0 = time.perf_counter()
+    freqs, blocks = live_blocks()
+    rx = build_pipeline(16, "cuda", True)
+    ctl = rx.control_template()
+    ctl[0]["frequency"] = freqs
+    launches = {}
+    launches["zoom_walk_live16"], walk16 = zoom_walk(
+        "live16", rx, ctl, blocks[:4], ZOOM_WALK)
+    line(f"zoom walk live16, compiled vs eager: {json.dumps(walk16)} "
+         f"[{smi}]")
+
+    def views16(lr):
+        lr.set_demod_view(4)
+        lr.set_zoom(1e6, 1e6)
+
+    launches["zoom_turns_live16"], turns = live_turns(
+        "live16 zoom", rx, ctl, blocks[:4], views16, zoom_only=True)
+    turns["modes"] = {"compiled": "compiled loop, compiled zoom",
+                      "eager": "compiled loop, eager zoom"}
+    line(f"zoom turns live16, both views, compiled zoom vs eager zoom: "
+         f"{json.dumps(turns)} [{smi}]")
+    gap = zoom_gap("live16", rx, ctl, smi)
+    line(f"zoom gap live16 at 8 MS/s: {json.dumps(gap)}")
+    del rx
+    from cubicsdr_tpu_torch.visual.spectrum import ZOOM_LEVELS
+    for keep in (15, ZOOM_LEVELS):
+        mem = {n: zoom_memory(n, keep) for n in (BLOCK, 2 * BLOCK)}
+        line(f"zoom memory per level, at most {keep} kept: "
+             f"{json.dumps(mem)} [{smi}]")
+    plan = scan58()
+    rx = plan.pipeline()
+    cap = plan.capture(4 * rx.block_len, "cuda", seed=13).cpu().numpy()
+    sblocks = [np.ascontiguousarray(cap[:, b * rx.block_len:
+                                        (b + 1) * rx.block_len])
+               for b in range(4)]
+    launches["zoom_walk_scan58"], walk58 = zoom_walk(
+        "scan58", rx, plan.controls(rx), sblocks,
+        ((1e6, 1e6), (1e6, 500e3), (1e6, 1e6)), per_stage=2)
+    line(f"zoom walk scan58, compiled vs eager: {json.dumps(walk58)} "
+         f"[{smi}]")
+    gap = zoom_gap("scan58", rx, plan.controls(rx), smi, zooms=(
+        ZOOM_GAP_CASES[0], ZOOM_GAP_CASES[1],
+        ("cold level", 1e6, 125e3)))
+    line(f"zoom gap scan58 at 8 MS/s: {json.dumps(gap)}")
+    line(f"zoom phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+    return launches
 
 
 def main() -> int:
@@ -2752,6 +3180,7 @@ def main() -> int:
     capture_rows = check_captures(smi)
     with tempfile.TemporaryDirectory() as tmp:
         churn_launches, _ = check_churn(Path(tmp), scan58(), smi=smi)
+    zoom_launches = check_zoom(smi)
 
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
@@ -2782,7 +3211,9 @@ def main() -> int:
                        for mode in v},
                     **{f"capture_{r['case']}_per_replay":
                        r["launches_per_replay"][name] for r in capture_rows},
-                    "churn_scan58": churn_launches[name]},
+                    "churn_scan58": churn_launches[name],
+                    **{f"{run}_{mode}": v[mode][name]
+                       for run, v in zoom_launches.items() for mode in v}},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

@@ -59,8 +59,13 @@ captures with their own outputs, sharing the state buffers: block i-1's
 outputs (the group iq taps ``on_block`` receives, the tap the demod view
 and the zoom view read) stay valid while block i is dispatched and until
 block i+1 is. Capture happens at the first block a step runs, under the
-step lock, the other threads free to use the card. ``compiled=False``
-runs the eager closures, asked for explicitly (an A/B switch), never as a
+step lock, the other threads free to use the card. The zoom view's
+levels are compiled steps too (``visual/spectrum.py``): ``set_zoom``
+builds the target level on the caller's thread before the view switches
+to it, and the levels one zoom step away on a background thread; the
+view's points ride the packed post-step, which reads them before the
+view's next replay. ``compiled=False`` runs the eager closures (and an
+eager zoom view), asked for explicitly (an A/B switch), never as a
 fallback.
 """
 
@@ -534,6 +539,14 @@ class LiveReceiver:
             pipeline.sample_rate != self.pipeline.sample_rate
             or pipeline.block_len != self.pipeline.block_len
             or pipeline.audio_rate != self.pipeline.audio_rate)
+        # A representation swap rebuilds an open zoom view in the new
+        # representation: its level is built here, outside the step lock,
+        # as set_zoom builds.
+        zoom, fresh = self.zoom, None
+        if (zoom is not None and not format_changed
+                and (pipeline.dtype == PLANAR) != self.planar):
+            fresh = self._new_zoom(pipeline.dtype)
+            fresh.prewarm_level(zoom.view_bandwidth)
         with self.step_lock:        # never mid-dispatch on the consumer
             self._install_step(pipeline, controls, state)
             self.pipeline = pipeline
@@ -548,7 +561,7 @@ class LiveReceiver:
             self._set_demod_view_locked(None)
             if not format_changed:
                 if repr_changed:
-                    self._follow_repr_locked()
+                    self._follow_repr_locked(fresh)
                 else:
                     self._install_post()     # post-steps are per plan
                 return
@@ -567,14 +580,16 @@ class LiveReceiver:
             self._st_dist = self.dist.init_state()
             self._st_spec = self.spec.init_state()
             self._install_post()
-            self.zoom = self._zoom_stash = None   # view rates changed
+            self._drop_zoom(self.zoom, self._zoom_stash)   # rates changed
+            self.zoom = self._zoom_stash = None
 
-    def _follow_repr_locked(self):
+    def _follow_repr_locked(self, fresh=None):
         """The visual chain after a planar<->complex swap at an unchanged
         format: distributor and spectrum (and an open zoom view) rebuilt in
         the new representation, their display state carried (the same
         shapes: the history converts between representations), so the
-        waterfall and the zoom view keep their continuity."""
+        waterfall and the zoom view keep their continuity. ``fresh`` is
+        the new zoom view, its level built outside the lock."""
         hist, pos = self._st_dist
         hist = as_pc(hist) if self.planar else to_complex(hist)
         self.dist = FFTDataDistributor(
@@ -584,12 +599,14 @@ class LiveReceiver:
             dtype=self.pipeline.dtype).to(self.device)
         self._st_dist = (hist, pos)
         self._respec()
+        self._drop_zoom(self._zoom_stash)
         self._zoom_stash = None
         if self.zoom is not None:
             old = self.zoom
-            z = self._new_zoom()
+            z = fresh if fresh is not None else self._new_zoom()
             z.set_view(old.view_offset, old.view_bandwidth)
-            z.st_core = old.st_core
+            z.load_display_state(old.st_core)
+            self._drop_zoom(old)
             self.zoom = z
         self._install_post()
 
@@ -602,12 +619,26 @@ class LiveReceiver:
             self.spec.fft_size, core.rate,
             peak_hold=core.peak_hold).to(self.device)
 
-    def _new_zoom(self):
+    def _new_zoom(self, dtype=None):
+        """A zoom view of the current format (in ``dtype``, default the
+        pipeline's), compiled as the loop is; a failure of its
+        background builds is noted in ``metrics``."""
         from cubicsdr_tpu_torch.visual.spectrum import ZoomSpectrumView
-        return ZoomSpectrumView(
+        z = ZoomSpectrumView(
             self.pipeline.sample_rate, self.pipeline.block_len,
             fft_size=self.spec.fft_size, device=self.device,
-            dtype=self.pipeline.dtype)
+            dtype=self.pipeline.dtype if dtype is None else dtype,
+            compiled=self.compiled)
+        z.on_error = lambda bw, e: self.metrics.note(
+            f"zoom_error_build_{bw:g}", repr(e))
+        return z
+
+    @staticmethod
+    def _drop_zoom(*views):
+        """Release dropped zoom views' levels (graphs, pools, buffers)."""
+        for z in views:
+            if z is not None:
+                z.close()
 
     # --- consumer: ring -> step -> sinks ---
     def _h2d(self, re: np.ndarray, im: np.ndarray):
@@ -742,11 +773,19 @@ class LiveReceiver:
 
     def set_zoom(self, offset: Optional[float], bandwidth: float = 0.0):
         """Point the zoomed spectrum view at ``offset`` Hz (relative to the
-        device center) with ``bandwidth`` Hz span; None disables. View
-        moves preserve the smoothed display (pan/rescale, not reset)."""
+        device center) with ``bandwidth`` Hz span; None disables (the view
+        is stashed with its built levels for the next zoom-on). View
+        moves preserve the smoothed display (pan/rescale, not reset).
+        The target level is built here, on the caller's thread, before
+        it becomes current; a failure (one a background build kept for
+        it included) raises and leaves the view as it was. A level
+        change then builds the levels one zoom step away on a
+        background thread."""
         if offset is None:
             with self.step_lock:
                 if self.zoom is not None:
+                    if self._zoom_stash is not self.zoom:
+                        self._drop_zoom(self._zoom_stash)
                     self._zoom_stash = self.zoom
                 self.zoom = None
             return
@@ -772,7 +811,7 @@ class LiveReceiver:
             z.set_view(float(offset),
                        float(bandwidth) or z.view_bandwidth)
         if z.resample_bw != prev_bw:
-            z.prewarm_adjacent()        # the levels one zoom step away
+            z.prewarm_adjacent()        # background: one zoom step away
 
     def set_display(self, lps=None, fft_average_rate=None, peak_hold=None,
                     demod_view_fft=None):
@@ -1178,8 +1217,11 @@ class LiveReceiver:
             if h is not None:
                 extra = h
                 # Pin the VIEW OBJECT: a zoom-off before the deferred
-                # finish must not leave it dereferencing None.
-                zoom_h = (self.zoom, h[0].numel())
+                # finish must not leave it dereferencing None. The points
+                # sit in the view step's output slot, which the post-step
+                # below reads before the view's next feed.
+                zoom_h = (self.zoom, h[0].numel(),
+                          (self.zoom.view_offset, self.zoom.resample_bw))
         post = self._post_for((layout, dv_tap is not None,
                                zoom_h[1] if zoom_h else 0))
         # The visual chain taps out["iq"] — the (converted float32)
@@ -1253,10 +1295,13 @@ class LiveReceiver:
         # may set self.zoom to None between a check and a use.
         zoom = self.zoom
         if zoom_h is not None:
-            z, n_pts = zoom_h
+            z, n_pts, view = zoom_h
             zpts = take((n_pts,))
-            if int(take((1,))[0]):
+            nz = int(take((1,))[0])
+            if nz:
                 z.points = zpts.copy()
+                z.points_view = view
+                z.lines += nz
         elif zoom is not None and planes is not None:
             # Chunk-misaligned view: fed from the host planes.
             p = np.stack(planes)

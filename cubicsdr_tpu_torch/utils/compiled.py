@@ -29,7 +29,18 @@ the graph. A call then copies its inputs and replays the next slot's
 graph. A capture fault raises; there is no eager fallback. The capture
 runs with ``capture_error_mode="thread_local"``: other threads may use
 the card meanwhile (the live loop's staging worker copies the next block
-to the device; a control thread builds a plan). The kernel wrappers
+to the device; a control thread builds a plan; the consumer replays
+while a zoom level builds on a background thread), but none may
+synchronise the whole device: a device-wide synchronisation, which
+``torch.cuda.graph``'s entry makes (it also empties the caching
+allocators, whose frees synchronise) and so do the build's own laps,
+invalidates a capture in progress on another thread. So builds run one
+at a time in the process, through ``BUILD_GATE``. A build asked for in
+the background (``build(background=True)``: the zoom view's prewarm)
+passes the gate once per part, each warm-up and each capture, and only
+while no other build waits; so a build on the consumer's path (a new
+plan's step, a new post-step, a zoom level to show) waits at most one
+part of it. The kernel wrappers
 count the warm-ups' launches as any launch; what a capture records they
 count as ``captured``, and each replay adds its graph's launches to
 their ``launches``.
@@ -42,6 +53,8 @@ aliasing that the card would.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import torch
@@ -49,6 +62,38 @@ import torch
 from cubicsdr_tpu_torch.utils.tree import tree_leaves, tree_map
 
 WARMUPS = 2             # eager calls before the captures (bench.py's)
+
+
+class _BuildGate:
+    """One CUDA build (part) at a time in the process: its device-wide
+    synchronisations must not meet another thread's capture (module
+    docstring). ``with BUILD_GATE():`` holds it for a whole build; with
+    ``background=True`` it is entered only while no other build waits."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._held = False
+        self._waiting = 0        # builds waiting that are not background
+
+    @contextlib.contextmanager
+    def __call__(self, background: bool = False):
+        with self._cv:
+            self._waiting += not background
+            try:
+                self._cv.wait_for(lambda: not self._held and (
+                    not background or not self._waiting))
+            finally:
+                self._waiting -= not background
+            self._held = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._held = False
+                self._cv.notify_all()
+
+
+BUILD_GATE = _BuildGate()
 
 
 def counted_kernels() -> tuple:
@@ -137,13 +182,27 @@ class CompiledStep:
         self.state = tree_map(self._own, state)
         self.inputs = tree_map(self._own, inputs)
 
-    def build(self) -> None:
+    def build(self, background: bool = False) -> None:
         """(CUDA) Warm up and capture now rather than at the first call;
-        needs the buffers (``prepare``)."""
+        needs the buffers (``prepare``). ``background``: a build off the
+        consumer's path, which yields to other builds between its parts
+        (module docstring)."""
         if self.state is None:
             raise RuntimeError("prepare the buffers before the build")
         if self.device.type == "cuda" and self._graphs is None:
-            self._build()
+            self._gated_build(background)
+
+    def _gated_build(self, background: bool = False) -> None:
+        parts = self._build()
+        if not background:
+            with BUILD_GATE():
+                for _ in parts:
+                    pass
+            return
+        done = False
+        while not done:
+            with BUILD_GATE(background=True):
+                done = next(parts, True) is True
 
     def load_state(self, state) -> None:
         """Copy ``state`` (tensors or numpy leaves) into the state
@@ -160,7 +219,7 @@ class CompiledStep:
         self._next = (k + 1) % self.slots
         if self.device.type == "cuda":
             if self._graphs is None:
-                self._build()
+                self._gated_build()
             self._graphs[k].replay()
             for kern in counted_kernels():
                 kern.launches += self.launches[k][kern.__name__]
@@ -194,29 +253,32 @@ class CompiledStep:
                for d, s in zip(dst, src)]
         _copy_into(self.state, src, "new state")
 
-    def _build(self) -> None:
-        """(CUDA) The warm-ups, then one capture per slot."""
+    def _build(self):
+        """(CUDA) The warm-ups, then one capture per slot: a generator
+        that yields after each part, never inside a stream's or a
+        capture's context."""
         dev = self.device
-        t0 = time.perf_counter()
         split = {"warmups": [], "captures": []}
 
-        def lap(part):
+        def lap(part, t0):
             torch.cuda.synchronize(dev)
-            split[part].append((time.perf_counter() - t0) * 1e3
-                               - sum(map(sum, split.values())))
+            split[part].append((time.perf_counter() - t0) * 1e3)
 
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUPS):
+        for _ in range(WARMUPS):
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
                 self.fn(tree_map(torch.clone, self.state), self.inputs)
-                lap("warmups")
+            lap("warmups", t0)
+            yield
         cur.wait_stream(side)
         owned = {_ptr(t) for t in (tree_leaves(self.state)
                                    + tree_leaves(self.inputs))}
         graphs, outs, counts = [], [], []
-        for _ in range(self.slots):
+        for k in range(self.slots):
+            t0 = time.perf_counter()
             g = torch.cuda.CUDAGraph()
             before = _captured_counts()
             with torch.cuda.graph(g, capture_error_mode="thread_local"):
@@ -225,11 +287,13 @@ class CompiledStep:
                 out = tree_map(
                     lambda t: t.clone() if _ptr(t) in owned else t, out)
                 self._write_state(new_state)
-            lap("captures")
+            lap("captures", t0)
             after = _captured_counts()
             graphs.append(g)
             outs.append(out)
             counts.append({n: after[n] - before[n] for n in after})
+            if k + 1 < self.slots:
+                yield
         self._graphs, self.outputs, self.launches = graphs, outs, counts
-        self.build_ms = (time.perf_counter() - t0) * 1e3
+        self.build_ms = sum(map(sum, split.values()))
         self.build_split_ms = split

@@ -33,9 +33,17 @@ from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
 from cubicsdr_tpu_torch.ops.resample import (
     RationalResampler, design_ratio, make_resampler)
 from cubicsdr_tpu_torch.stream.op import StreamOp
+from cubicsdr_tpu_torch.utils.compiled import CompiledStep
 
 SPECTRUM_VZM = 2                 # ref: src/CubicSDRDefs.h:46
 DEFAULT_FFT_SIZE = 2048          # ref: src/CubicSDRDefs.h:44
+# Zoom levels a view keeps. A compiled level holds its buffers and two
+# CUDA graph pools: 88-185 MB reserved at a 1,024,000-sample block and
+# 189-279 MB at 2,048,000 on an NVIDIA H100 80GB HBM3 (chip_smoke.py
+# phase 28), 2.1 and 3.7 GB for all 15 reachable levels. Past this many
+# the least recently used level is dropped (never the current one or
+# one being built) and rebuilt at its next use.
+ZOOM_LEVELS = 6
 
 
 def frame_update(core: "SpectrumProcessor", st, mag):
@@ -264,6 +272,45 @@ class SpectrumView(StreamOp):
         return (s_n, s_r), frames
 
 
+class _EagerStep:
+    """A zoom level's step run eagerly (``compiled=False``, an A/B
+    switch): ``CompiledStep``'s interface over the state it last
+    returned."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.state = self.inputs = None
+
+    def prepare(self, state, inputs) -> None:
+        self.state, self.inputs = state, inputs
+
+    def build(self, background: bool = False) -> None:
+        pass
+
+    def load_state(self, state) -> None:
+        self.state = state
+
+    def __call__(self, state, inputs):
+        self.state, out = self.fn(state, inputs)
+        return self.state, out
+
+
+class _Level:
+    """One zoom level: its front stages, chunk and step. ``built`` once
+    the step is built (``lock`` is held meanwhile, so a level is built
+    once); ``error`` a background build's failure, kept for the level's
+    next build; ``used`` the view's use count when it was last built,
+    made current or fed."""
+
+    def __init__(self, bw, nco, res, dist, chunk, step):
+        self.bw, self.nco, self.res, self.dist = bw, nco, res, dist
+        self.chunk, self.step = chunk, step
+        self.lock = threading.Lock()
+        self.built = False
+        self.error = None
+        self.used = 0
+
+
 class ZoomSpectrumView:
     """Managed zoomed-spectrum view — the ``is_view`` path of the
     reference's SpectrumVisualProcessor (ref: src/process/
@@ -278,21 +325,37 @@ class ZoomSpectrumView:
       * partial-input priming (ref :401-421) is absorbed by the line
         pacer's sample history.
 
-    One front (NCO, resampler, pacer, step) per (P, Q, chunk), cached, so
-    a revisited zoom level reuses its built front; the view offset rides
-    in as a device scalar. Host code buffers arbitrary block lengths into
-    fixed Q-divisible chunks. ``dtype`` is the receive step's
-    representation (PLANAR or torch.complex64), which the device-resident
-    feed takes as it comes. On ``device``: the card unless the caller asks
-    for the host (``device="cpu"``); without a CUDA device the default
-    raises, as ``ReceiverPipeline``'s does.
+    One level (NCO, resampler, pacer and their step) per (P, Q, chunk),
+    cached (at most ``ZOOM_LEVELS`` built, the least recently used built
+    level dropped first), so a revisited zoom level reuses its built
+    step; the view offset rides in the step's omega input buffer.
+    ``compiled`` (the default) makes each level's step a
+    ``utils/compiled.py`` ``CompiledStep`` (the JAX package's jitted
+    per-level program): on
+    the card two warm-ups and two CUDA graph captures per level, then
+    one replay per block, a capture fault raising; on the CPU the same
+    buffer rules, run eagerly. ``compiled=False`` runs the steps
+    eagerly (an A/B switch, never a fallback). Each level's step owns
+    its state buffers; the display state is one state across levels:
+    a view change loads the carried (rescaled or shifted) display state
+    into the current level's buffers, in stream order behind the blocks
+    already fed. Outputs alternate between the step's two slots, so a
+    block's (points, n_valid) stay valid until the block after next.
+
+    Host code buffers arbitrary block lengths into fixed Q-divisible
+    chunks. ``dtype`` is the receive step's representation (PLANAR or
+    torch.complex64), which the device-resident feed takes as it comes.
+    On ``device``: the card unless the caller asks for the host
+    (``device="cpu"``); without a CUDA device the default raises, as
+    ``ReceiverPipeline``'s does. ``on_error(bandwidth, exc)``, when set,
+    hears of a background build's failure as it happens.
     """
 
     def __init__(self, input_rate: float, block_len: int,
                  fft_size: int = DEFAULT_FFT_SIZE,
                  lines_per_second: float = 30.0,
                  fft_average_rate: float = 0.65, device="cuda",
-                 dtype=PLANAR):
+                 dtype=PLANAR, compiled: bool = True):
         from cubicsdr_tpu_torch.visual.planar_spectrum import (
             PlanarSpectrumProcessor)
         self.dtype = dtype
@@ -303,6 +366,7 @@ class ZoomSpectrumView:
         self.n = self.fft_size * SPECTRUM_VZM
         self.lps = float(lines_per_second)
         self.device = torch.device(device)
+        self.compiled = bool(compiled)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "ZoomSpectrumView runs on the card by default and this host "
@@ -312,20 +376,35 @@ class ZoomSpectrumView:
         self.core = core_cls(fft_size, fft_average_rate).to(self.device)
         self.view_offset = 0.0
         self.view_bandwidth = float(input_rate)
-        self.st_core = self.core.init_state()
         self._front_cache: dict = {}
         self._front_lock = threading.Lock()
         self.front_cache_hits = 0
-        self._warmed: set = set()        # steps already run once
-        self._set_omega()
-        self._build_front()
+        self.level_builds = 0            # level steps built
+        self.level_evictions = 0         # built levels dropped
+        self._uses = 0
+        self.on_error = None
+        self.points: np.ndarray | None = None
+        self.points_view = None          # (offset, bandwidth) of ``points``
+        self.lines = 0                   # display lines drawn so far
+        self._build_front(self.core.init_state())
 
     def _set_omega(self):
-        # A device scalar, set on view change: the per-block step then
-        # uploads nothing.
-        self._omega = torch.tensor(
-            np.float32(-2.0 * np.pi * self.view_offset / self.input_rate),
-            device=self.device)
+        # Written into the level's omega buffer on view change: the
+        # per-block step then uploads nothing.
+        self._level.step.inputs[1].fill_(float(np.float32(
+            -2.0 * np.pi * self.view_offset / self.input_rate)))
+
+    @property
+    def st_core(self):
+        """The display state: the current level's state buffers (read in
+        stream order behind the blocks already fed)."""
+        return self._level.step.state[1]
+
+    def load_display_state(self, st) -> None:
+        """Load ``st`` (the display state's tensors) into the current
+        level's state buffers, in stream order."""
+        step = self._level.step
+        step.load_state((step.state[0], st))
 
     def _snap_bw(self, bandwidth: float) -> float:
         """Reference halves the input rate by VZM until <= bandwidth
@@ -338,19 +417,20 @@ class ZoomSpectrumView:
             bw /= SPECTRUM_VZM
         return bw
 
-    def _make_front(self, resample_bw: float):
-        """Front for one snapped view bandwidth, cached per (P, Q, chunk)
-        so a revisited zoom level reuses it."""
+    def _make_front(self, resample_bw: float) -> _Level:
+        """The level for one snapped view bandwidth, cached per
+        (P, Q, chunk) so a revisited zoom level reuses it; a new level's
+        step buffers are allocated here, its build comes later."""
         from cubicsdr_tpu_torch.visual.distributor import FFTDataDistributor
         P, Q = design_ratio(resample_bw / self.input_rate,
                             max_denominator=1 << 16)
         chunk = Q * max(1, round(self.block_len / Q))
         key = (P, Q, chunk)
         with self._front_lock:
-            ent = self._front_cache.get(key)
-            if ent is not None:
+            level = self._front_cache.get(key)
+            if level is not None:
                 self.front_cache_hits += 1
-                return ent
+                return level
         nco = NCOMixer().to(self.device)
         res = make_resampler(P, Q, dtype=self.dtype).to(self.device)
         dist = FFTDataDistributor(self.n, resample_bw,
@@ -359,75 +439,160 @@ class ZoomSpectrumView:
                                   dtype=self.dtype).to(self.device)
         core = self.core
 
-        def _step(st_front, st_core, x, omega):
-            s_n, s_r, s_d = st_front
+        def _step(state, inputs):
+            (s_n, s_r, s_d), st_core = state
+            x, omega = inputs
             s_n, y = nco.apply(s_n, (x, omega))
             s_r, y = res.apply(s_r, y)
             s_d, (frames, valid) = dist.apply(s_d, y)
             st_core, disp = core.apply(st_core, frames, valid=valid)
-            return ((s_n, s_r, s_d), st_core, disp["spectrum_points"],
-                    valid.sum())
+            return (((s_n, s_r, s_d), st_core),
+                    (disp["spectrum_points"], valid.sum()))
 
-        ent = (nco, res, dist, chunk, _step)
+        step = (CompiledStep(_step, self.device) if self.compiled
+                else _EagerStep(_step))
+        z = torch.zeros(chunk, dtype=torch.float32)
+        step.prepare(((nco.init_state(), res.init_state(),
+                       dist.init_state()), core.init_state()),
+                     (self._iq(z, z), torch.zeros(
+                         (), dtype=torch.float32, device=self.device)))
+        level = _Level(resample_bw, nco, res, dist, chunk, step)
         with self._front_lock:
-            ent = self._front_cache.setdefault(key, ent)
-        return ent
+            return self._front_cache.setdefault(key, level)
 
-    def _build_front(self):
+    def _build_front(self, st_core):
+        """Make the level of ``view_bandwidth`` current, with a fresh
+        front state and ``st_core`` loaded into its buffers."""
         self.resample_bw = self._snap_bw(self.view_bandwidth)
+        level = self._make_front(self.resample_bw)
+        self._level = level
+        self._touch(level)
         (self.nco, self.res, self.dist, self.chunk,
-         self._step) = self._make_front(self.resample_bw)
-        self._st_front = (self.nco.init_state(), self.res.init_state(),
-                          self.dist.init_state())
+         self._step) = (level.nco, level.res, level.dist, level.chunk,
+                        level.step)
+        level.step.load_state(((self.nco.init_state(),
+                                self.res.init_state(),
+                                self.dist.init_state()), st_core))
+        self._set_omega()
         self._buf = np.zeros((2, 0), np.float32)
-        self.points: np.ndarray | None = None
+        self.points = self.points_view = None
 
-    def _warm_one(self, bw: float):
-        """Build (or reuse) the front for ``bw`` and run it once on a zero
-        chunk with fresh states, so a broken level fails here and not in
-        the stream. Failures propagate."""
-        nco, res, dist, chunk, step = self._make_front(bw)
-        if id(step) in self._warmed:
+    def _ensure_built(self, level: _Level, background: bool = False) -> None:
+        """Build ``level``'s step (on the card: its warm-ups and
+        captures) unless built; a build another thread has begun is
+        waited for, never repeated. A failure a background build kept
+        for this level is raised here, once (a background build leaves
+        it kept); a background build's own failure is kept."""
+        if level.built:
             return
-        z = torch.zeros(chunk, dtype=torch.float32, device=self.device)
-        step((nco.init_state(), res.init_state(), dist.init_state()),
-             self.core.init_state(), self._iq(z, z),
-             torch.zeros((), dtype=torch.float32, device=self.device))
-        self._warmed.add(id(step))
+        with level.lock:
+            if level.built:
+                return
+            if level.error is not None:
+                if background:
+                    return
+                err, level.error = level.error, None
+                raise err
+            try:
+                level.step.build(background=background)
+            except Exception as e:
+                if background:
+                    level.error = e
+                raise
+            with self._front_lock:
+                self.level_builds += 1
+            level.built = True
+            self._touch(level)
+            self._evict()
+
+    def _touch(self, level: _Level) -> None:
+        self._uses += 1
+        level.used = self._uses
+
+    def _evict(self) -> None:
+        """Drop the least recently used built levels past ``ZOOM_LEVELS``,
+        never the current one or one being built (its lock held); a
+        level not built yet (one whose build is about to start) stays. A
+        dropped level is rebuilt at its next use."""
+        with self._front_lock:
+            cache = self._front_cache
+            built = [key for key, lv in cache.items() if lv.built]
+            spare = sorted((cache[key].used, key) for key in built
+                           if cache[key] is not self._level
+                           and not cache[key].lock.locked())
+            for _, key in spare[:max(0, len(built) - ZOOM_LEVELS)]:
+                del cache[key]
+                self.level_evictions += 1
+
+    def _warm_one(self, bw: float, background: bool = False):
+        """Build (or reuse) the level for ``bw`` so a broken level fails
+        here and not in the stream. Failures propagate; a background
+        build's are also kept for the level's next ``prewarm_level``."""
+        self._ensure_built(self._make_front(bw), background)
 
     def prewarm_level(self, bandwidth: float):
-        """Build the view front for ``bandwidth`` (snapped) before making
-        it current; callers run this outside any streaming lock."""
+        """Build the level for ``bandwidth`` (snapped) before making it
+        current; callers run this outside any streaming lock. A failure
+        a background build kept for this level is raised here."""
         self._warm_one(self._snap_bw(float(bandwidth)))
 
-    def prewarm_adjacent(self):
-        """Build the +-1 zoom-step fronts (the zoom levels one wheel-click
-        away), so the next zoom finds them built. Eager torch builds a
-        front in milliseconds, so this runs on the caller's thread (the
-        JAX package compiles them on a background thread)."""
-        for bw in (self.resample_bw / SPECTRUM_VZM,
-                   self.resample_bw * SPECTRUM_VZM):
-            if self.input_rate / (1 << 14) <= bw <= self.input_rate:
+    def prewarm_adjacent(self, background: bool = True):
+        """Build the +-1 zoom-step levels (the zoom levels one
+        wheel-click away), so the next zoom finds them built: on a
+        daemon thread (returned), yielding to the builds on the
+        consumer's path (``utils/compiled.py``), or with
+        ``background=False`` on the caller's, raising. A background
+        failure is kept for its level (the level's next
+        ``prewarm_level`` raises it) and passed to ``on_error``;
+        nothing carries on eagerly."""
+        targets = [bw for bw in (self.resample_bw / SPECTRUM_VZM,
+                                 self.resample_bw * SPECTRUM_VZM)
+                   if self.input_rate / (1 << 14) <= bw <= self.input_rate]
+        if not background:
+            for bw in targets:
                 self._warm_one(bw)
+            return None
+
+        def work():
+            for bw in targets:
+                try:
+                    self._warm_one(bw, background=True)
+                except Exception as e:      # noqa: BLE001 — kept, reported
+                    if self.on_error is not None:
+                        self.on_error(bw, e)
+
+        t = threading.Thread(target=work, name="cs-zoom-prewarm",
+                             daemon=True)
+        t.start()
+        return t
+
+    def close(self) -> None:
+        """Drop every level but the current one (their steps' graphs,
+        pools and buffers); the current level goes with the view, which
+        a block's finish still holding it may feed once more. A
+        background build still running ends on its own and its level is
+        dropped with it."""
+        with self._front_lock:
+            self._front_cache.clear()
 
     # ---- view control (host events, continuity-preserving) --------------
     def set_view(self, offset: float, bandwidth: float):
         new_bw = self._snap_bw(float(bandwidth))
         if new_bw != self.resample_bw:
             old = self.resample_bw
+            st = self.st_core
             steps = int(round(abs(np.log2(new_bw / old))))
             for _ in range(steps):
-                self.st_core = rescale_display_state(
-                    self.st_core, zoom_in=new_bw < old)
+                st = rescale_display_state(st, zoom_in=new_bw < old)
             self.view_bandwidth = float(bandwidth)
-            self._build_front()        # new resampler/pacer, fresh fronts
+            self._build_front(st)      # new resampler/pacer, fresh fronts
         freq_diff = float(offset) - self.view_offset
         if freq_diff:
             bin_per_hz = self.resample_bw / self.n
             k = int(np.floor(abs(freq_diff) / bin_per_hz))
             if 0 < k < self.n // 2:
-                self.st_core = shift_display_state(
-                    self.st_core, k if freq_diff > 0 else -k)
+                self.load_display_state(shift_display_state(
+                    self.st_core, k if freq_diff > 0 else -k))
             self.view_offset = float(offset)
             self._set_omega()
 
@@ -436,17 +601,27 @@ class ZoomSpectrumView:
         return PC(re, im) if self.planar else torch.complex(re, im)
 
     # ---- streaming -------------------------------------------------------
+    def _run(self, x):
+        """One chunk through the current level's step: (points, n_valid)
+        on the device, in the step's output slot."""
+        level = self._level
+        self._ensure_built(level)
+        self._touch(level)
+        step = level.step
+        _, out = step(step.state, (x, step.inputs[1]))
+        return out
+
     def feed_device(self, x):
         """Device-resident feed: ``x`` is the step's full-band block
-        already on the device — no host->device re-upload. Requires the
-        view chunk to equal the block length; returns (points, n_valid)
-        DEVICE tensors for the caller's deferred pull, or None when the
-        chunk doesn't line up (caller falls back to ``feed``)."""
+        already on the device — no host->device re-upload (compiled, one
+        device copy into the level's input buffer). Requires the view
+        chunk to equal the block length; returns (points, n_valid)
+        DEVICE tensors for the caller's deferred pull, valid until the
+        block after next is fed, or None when the chunk doesn't line up
+        (caller falls back to ``feed``)."""
         if self.chunk != self.block_len:
             return None
-        self._st_front, self.st_core, pts, nv = self._step(
-            self._st_front, self.st_core, x, self._omega)
-        return pts, nv
+        return self._run(x)
 
     def feed(self, planes: np.ndarray) -> np.ndarray | None:
         """planes: float32 [2, L] (re, im) host block. Buffers to the fixed
@@ -457,9 +632,10 @@ class ZoomSpectrumView:
             cur, self._buf = (self._buf[:, :self.chunk],
                               self._buf[:, self.chunk:])
             x = torch.from_numpy(np.ascontiguousarray(cur)).to(self.device)
-            self._st_front, self.st_core, pts, nv = self._step(
-                self._st_front, self.st_core, self._iq(x[0], x[1]),
-                self._omega)
-            if int(nv):
+            pts, nv = self._run(self._iq(x[0], x[1]))
+            nv = int(nv)
+            if nv:
                 self.points = pts.cpu().numpy()
+                self.points_view = (self.view_offset, self.resample_bw)
+                self.lines += nv
         return self.points

@@ -294,9 +294,11 @@ def test_prewarm_populates_cache_and_surfaces_failures(monkeypatch):
     fs, L = 1_000_000, 20000
     v = ZoomSpectrumView(fs, L, fft_size=128, device="cpu")
     assert len(v._front_cache) == 1
-    v.prewarm_adjacent()
+    t = v.prewarm_adjacent()              # on a background thread
+    t.join(timeout=60)
+    assert not t.is_alive()
     # Full-band view has one neighbor below (fs/2); nothing above.
-    assert len(v._front_cache) == 2 and len(v._warmed) == 1
+    assert len(v._front_cache) == 2 and v.level_builds == 1
     v.set_view(0.0, fs / 2)          # pre-warmed: no new front
     assert v.front_cache_hits >= 1
 
@@ -308,7 +310,7 @@ def test_prewarm_populates_cache_and_surfaces_failures(monkeypatch):
     with pytest.raises(RuntimeError, match="no front"):
         v.prewarm_level(fs / 8)
     with pytest.raises(RuntimeError, match="no front"):
-        v.prewarm_adjacent()
+        v.prewarm_adjacent(background=False)
 
 
 def test_waterfall_roll_and_render(tmp_path):
