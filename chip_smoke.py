@@ -114,11 +114,22 @@ Phases, each printing one line:
 18. ``parallel.ShardedReceiver`` on a 1x1 mesh under NCCL, with its
    defaults (the card, both kernels), on scan58 over 3 blocks against the
    unsharded card pipeline at the pipeline's gates, 1 PFB and 6 route
-   launches per block, and the sharded and unsharded steps' MS/s;
+   launches per block; then its compiled step (``make_step()``: two
+   warm-ups, one CUDA graph per output slot, the JAX package's jitted
+   ``make_step``) over the same blocks against the eager sharded step,
+   bit for bit on every output and state leaf, 1 PFB and 6 route
+   launches per replay; then ms per block and MS/s in turns: the
+   unsharded step eager and compiled (one graph per block, as the
+   CLI's), the sharded step eager and compiled; then ``rx --mesh
+   "time=1,chan=1"`` (one spawned NCCL rank running the compiled sharded
+   step) on the card against the same command with ``--device cpu``
+   (one gloo rank) on a 3-block scan58 capture, its WAV at the audio
+   gates, with the wall time of each;
 19. ``multihost`` with 2 worker processes on the one card (time=2; NCCL
    takes one rank per GPU, so the phase asks for host collectives: gloo
    on host copies), scan58, each rank verified against the unsharded
-   pipeline it computes, and a timed phase, bound by those copies;
+   pipeline it computes, and a timed phase, bound by those copies; each
+   report says ``"compiled": false`` (no graph holds a host copy);
 20. the complex64 pipeline (``dtype=torch.complex64``, whose default
    ``use_kernels=None`` resolves to no kernel, as the JAX package's
    complex64 path runs no Pallas kernel) on the card at demod16 and at
@@ -151,9 +162,10 @@ Phases, each printing one line:
    no block is dropped;
 23. ``parallel.dryrun.dryrun_multichip(1, "cuda")`` (one NCCL rank: a
    mixed FM + AM + BPSK sharded step with the reference's shape checks)
-   and ``parallel.scaling.measure_scaling`` over 1 rank (NCCL) and 2
-   ranks sharing the card (host collectives, gloo on host copies), with
-   the rows printed;
+   and ``parallel.scaling.measure_scaling`` over 1 rank (NCCL, the
+   compiled sharded step) and 2 ranks sharing the card (host
+   collectives, gloo on host copies, the eager step), with the rows
+   printed;
 24. the bench's CUDA graph of K = 8 receive steps
    (``cubicsdr_tpu_torch.bench.GraphedScan``, the counterpart of the JAX
    bench's ``jit`` + ``lax.scan``) at demod16, demod256 and scan58 (its
@@ -220,8 +232,9 @@ Phases, each printing one line:
    period while a background build ran, 0 drops).
 
 Then (29) one JSON line describing the kernels (launches on the demod16
-main path and on every other path, the CLI's, serve's, the sharded and
-the multihost ranks', the complex64 paths' (zero), the graph
+main path and on every other path, the CLI's, serve's, the sharded
+(eager and compiled) and the multihost ranks', the complex64 paths'
+(zero), the graph
 captures' (per block), the compiled/eager turns', the captures' (per
 replay), the churn run's and the zoom phase's included, error,
 cold/warm/plain ms, bound, roofline share, every case; no single
@@ -1366,17 +1379,39 @@ def check_cli_wide(tmp: Path, card: str = "cuda"):
     return rows
 
 
+def same_tree(a, b, what: str) -> int:
+    """Every tensor leaf of two nests equal bit for bit (on the device);
+    returns the number of leaves compared."""
+    from cubicsdr_tpu_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb) or not la:
+        raise AssertionError(f"{what}: {len(la)} leaves vs {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: leaf {i} differs")
+    return len(la)
+
+
 def check_sharded(smi: str):
     """Phase 18: ShardedReceiver on a 1x1 mesh under NCCL, built with its
     defaults (the card, both kernels), on scan58's plan over 3 blocks,
     against the unsharded ReceiverPipeline on the card at the pipeline's
     gates (symbols by the CPU slicer's margin); exactly 1 PFB and 6 route
-    launches per block; the sharded and unsharded steps' MS/s."""
+    launches per block. Then the compiled sharded step (``make_step()``)
+    over the same blocks, bit for bit against the eager sharded step on
+    every output and state leaf, 1 PFB and 6 route launches per replay
+    (and the build's two eager warm-ups); then ms per block and MS/s in
+    turns, each on device-resident blocks after 3 warm-up blocks: the
+    unsharded step eager and compiled (a ``CompiledStep`` of ``apply``,
+    one graph per block, as the CLI's), the sharded step eager and
+    compiled. Returns the eager and the compiled launches, the gates'
+    worst values and the row."""
     import torch.distributed as dist
     from cubicsdr_tpu_torch.ops.planar import PC
     from cubicsdr_tpu_torch.parallel.mesh import make_receiver_mesh
     from cubicsdr_tpu_torch.parallel.multihost import free_port
     from cubicsdr_tpu_torch.parallel.sharded import ShardedReceiver
+    from cubicsdr_tpu_torch.utils.compiled import CompiledStep
     from cubicsdr_tpu_torch.utils.synth import scan58
     from cubicsdr_tpu_torch.utils.tree import tree_map
     plan = scan58()
@@ -1409,33 +1444,117 @@ def check_sharded(smi: str):
         compare_groups(rx_cpu, outs, [to_cpu(o) for o in ref],
                        [to_cpu(b) for b in befores], worst)
 
-        def sharded_rate(n_blocks=10, n_warm=3):
-            s = srx.init_state()
-            pcs = [PC(b[0], b[1]) for b in blocks]
+        # The compiled sharded step against the eager one, bit for bit.
+        step = srx.make_step()
+        if not isinstance(step, CompiledStep):
+            raise AssertionError(f"make_step() gave {type(step).__name__}")
+        pcs = [PC(b[0], b[1]) for b in blocks]
+        reset_launches()
+        sc, n_leaves = srx.init_state(), 0
+        for i, pc in enumerate(pcs):
+            sc, oc = step(sc, (pc, controls))
+            n_leaves += same_tree(oc, outs[i], f"compiled sharded block {i}")
+        n_leaves += same_tree(sc, st, "compiled sharded state")
+        compiled_launches = read_launches()
+        per_block = {"pfbch2_planar": 1, "routed_shifted_resample": 6}
+        if step.launches != [per_block] * step.slots:
+            raise AssertionError(f"compiled sharded replays hold "
+                                 f"{step.launches}, expected {per_block}")
+        calls = build_warmups("cuda") + len(pcs)
+        if compiled_launches != {k: calls * v for k, v in per_block.items()}:
+            raise AssertionError(f"compiled sharded scan58 launches "
+                                 f"{compiled_launches}, expected {calls} x "
+                                 f"{per_block}")
+        worst["compiled_vs_eager_leaves_equal"] = n_leaves
+        worst["compiled_build_ms"] = step.build_ms
+
+        unsharded = CompiledStep(rx.apply, rx.device)
+        dev_controls = [{k: torch.as_tensor(v, device=rx.device)
+                         for k, v in c.items()} for c in plan.controls(rx)]
+        eager = srx.make_step(compiled=False)
+        calls = {
+            "unsharded_compiled": lambda s, i: unsharded(
+                s, (as_input(rx, blocks[i % 3]), dev_controls)),
+            "sharded_eager": lambda s, i: eager(s, (pcs[i % 3], controls)),
+            "sharded_compiled": lambda s, i: step(s, (pcs[i % 3],
+                                                      controls)),
+        }
+        inits = {"unsharded_compiled": rx.init_state,
+                 "sharded_eager": srx.init_state,
+                 "sharded_compiled": srx.init_state}
+
+        def rate(turn, n_blocks=10, n_warm=3):
+            if turn == "unsharded_eager":
+                return timed_steps(rx, blocks, plan.controls(rx), n_blocks)
+            s = inits[turn]()
             for b in range(n_warm):
-                s, o = srx.step(s, pcs[b % 3], controls)
+                s, o = calls[turn](s, b)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for b in range(n_blocks):
-                s, o = srx.step(s, pcs[b % 3], controls)
+                s, o = calls[turn](s, b)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            if not torch.isfinite(o["mix"]).all():
+                raise AssertionError(f"non-finite mix in the {turn} turn")
             return n_blocks * srx.block_len / dt / 1e6, dt / n_blocks * 1e3
 
+        turns = ("unsharded_eager", "unsharded_compiled", "sharded_eager",
+                 "sharded_compiled")
         rates = {}
-        for turn in ("unsharded", "sharded", "sharded", "unsharded"):
-            r = (timed_steps(rx, blocks, plan.controls(rx), 10)
-                 if turn == "unsharded" else sharded_rate())
-            rates.setdefault(turn, []).append(r)
+        for turn in turns + turns[::-1]:
+            rates.setdefault(turn, []).append(rate(turn))
         row = {"row": "sharded1x1_scan58", "backend": dist.get_backend(),
                "block_len": srx.block_len, "card": smi,
+               "compiled_build_ms": step.build_ms,
+               "compiled_build_split_ms": step.build_split_ms,
                **{f"{k}_msamples_per_s": [r[0] for r in v]
                   for k, v in rates.items()},
                **{f"{k}_ms_per_block": [r[1] for r in v]
                   for k, v in rates.items()}}
     finally:
         dist.destroy_process_group()
-    return launches, worst, row
+    return launches, compiled_launches, worst, row
+
+
+def check_rx_mesh(tmp: Path, plan, smi: str, card: str = "cuda",
+                  mesh: str = "time=1,chan=1") -> dict:
+    """Phase 18's ``rx --mesh "time=1,chan=1"`` as a user runs it, on
+    ``card`` (one NCCL rank per card: its compiled sharded step is a
+    CUDA graph) and with ``--device cpu`` (gloo ranks, the same buffers
+    run eagerly), on a 3-block scan58 capture with the spectrum and a
+    checkpoint: the WAVs at the audio gates and finite; the wall time of
+    each command (process start-up, plan build and compile included).
+    ``mesh`` takes a larger mesh on a host with that many cards."""
+    from cubicsdr_tpu_torch.app import cli
+    from cubicsdr_tpu_torch.app.session import SessionMgr
+    from cubicsdr_tpu_torch.io.wav import read_wav
+    cap, sess = tmp / "mesh.cf32", tmp / "mesh.json"
+    write_cf32(cap, plan.capture(3 * 2_048_000, card, seed=13))
+    s = SessionMgr(plan.manager(CENTER))
+    s.center_freq, s.sample_rate = int(CENTER), int(plan.fs)
+    s.save_session(str(sess))
+    row = {"row": "cli_rx_mesh_scan58", "mesh": mesh, "card": smi}
+    wavs = {}
+    for side, dev in (("card", card), ("cpu", "cpu")):
+        out = tmp / f"mesh_{side}.wav"
+        t0 = time.perf_counter()
+        if cli.main(["rx", str(sess), str(cap), "-o", str(out), "--mesh",
+                     mesh, "--checkpoint",
+                     str(tmp / f"mesh_{side}.npz"), "--device", dev]) != 0:
+            raise AssertionError(f"rx --mesh on {dev} failed")
+        row[f"{side}_s"] = time.perf_counter() - t0
+        wavs[side] = read_wav(str(out))
+    (a, ra), (b, rb) = wavs["card"], wavs["cpu"]
+    if ra != rb or a.shape != b.shape or not np.isfinite(a).all() \
+            or np.abs(a).max() < 0.01:
+        raise AssertionError(f"rx --mesh WAVs {a.shape} at {ra} vs "
+                             f"{b.shape} at {rb}")
+    row.update(audio_close(a, b, "rx --mesh WAV"), samples=3 * 2_048_000,
+               note="wall time of cli.main: a spawned rank process, plan "
+                    "build, compiled step build, 3 blocks, WAV, PNG and "
+                    "checkpoint written")
+    return row
 
 
 def check_multihost(smi: str):
@@ -1453,7 +1572,8 @@ def check_multihost(smi: str):
     wall = time.perf_counter() - t0
     for rep in reports:
         if not (rep["ok"] and rep["verified"] and rep["process_count"] == 2
-                and rep["host_collectives"] and rep["backend"] == "gloo"):
+                and rep["host_collectives"] and rep["backend"] == "gloo"
+                and rep["compiled"] is False):
             raise AssertionError(f"multihost report {rep}")
         if rep["launches"] != {"pfbch2_planar": 2,
                                "routed_shifted_resample": 12}:
@@ -1461,6 +1581,7 @@ def check_multihost(smi: str):
                                  f"{rep['launches']}")
     return reports, {"row": "multihost2_scan58_one_card",
                      "collectives": "gloo on host copies (2 ranks, 1 GPU)",
+                     "compiled": False,
                      "block_len": reports[0]["block_len"],
                      "aggregate_msamples_per_s": [
                          r["timed"]["aggregate_msps"] for r in reports],
@@ -1816,7 +1937,8 @@ def check_live_complex():
 
 def check_scaling(smi: str):
     """Phase 23: the dry run on one NCCL rank, then the weak-scaling rows
-    over 1 rank (NCCL) and 2 ranks sharing the card (host collectives)."""
+    over 1 rank (NCCL: the compiled sharded step) and 2 ranks sharing the
+    card (host collectives: the eager step, ``"compiled": false``)."""
     from cubicsdr_tpu_torch.parallel.dryrun import dryrun_multichip
     from cubicsdr_tpu_torch.parallel.scaling import measure_scaling
     t0 = time.perf_counter()
@@ -1825,8 +1947,12 @@ def check_scaling(smi: str):
     rep = measure_scaling(device_counts=[1, 2], device="cuda",
                           host_collectives=True)
     t2 = time.perf_counter()
-    if dry["backend"] != "nccl" or rep["rows"][0]["backend"] != "nccl" \
-            or not all(r["msps"] > 0 for r in rep["rows"]):
+    one, two = rep["rows"]
+    if dry["backend"] != "nccl" or one["backend"] != "nccl" \
+            or not all(r["msps"] > 0 for r in rep["rows"]) \
+            or (one["compiled"], two["compiled"]) != (True, False) \
+            or (one["host_collectives"], two["host_collectives"]) != (
+                False, True):
         raise AssertionError(f"dry run {dry}, scaling {rep}")
     return dry, {**rep, "dryrun_wall_s": t1 - t0, "scaling_wall_s": t2 - t1,
                  "card": smi}
@@ -3148,10 +3274,15 @@ def main() -> int:
             line(f"cli {name} on the card vs --device cpu: {json.dumps(r)} "
                  f"[{smi}]")
 
-    sharded_launches, sharded, sharded_row = check_sharded(smi)
+    sharded_launches, sharded_compiled_launches, sharded, sharded_row = \
+        check_sharded(smi)
     line(f"sharded 1x1 (NCCL) scan58 x3 blocks: launches {sharded_launches}"
-         f", vs the unsharded card pipeline {json.dumps(sharded)} [{smi}]")
+         f" (compiled, with its build's warm-ups: "
+         f"{sharded_compiled_launches}), vs the unsharded card pipeline and "
+         f"compiled vs eager {json.dumps(sharded)} [{smi}]")
     line(json.dumps(sharded_row))
+    with tempfile.TemporaryDirectory() as tmp:
+        line(json.dumps(check_rx_mesh(Path(tmp), scan58(), smi)))
     mh_reports, mh_row = check_multihost(smi)
     line(f"multihost 2 processes on cuda:0 (time=2, gloo on host copies), "
          f"scan58: both ranks verified against the unsharded pipeline, "
@@ -3197,6 +3328,8 @@ def main() -> int:
                     **{f"cli_{k}": r["launches"][name]
                        for k, r in wide_rows.items()},
                     "sharded_1x1_scan58": sharded_launches[name],
+                    "sharded_1x1_scan58_compiled":
+                        sharded_compiled_launches[name],
                     "multihost_rank0_scan58":
                         mh_reports[0]["launches"][name],
                     **{f"complex64_{k}": v[name]

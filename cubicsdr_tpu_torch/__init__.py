@@ -32,4 +32,14 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# On the CPU, torch's transcendental functions (cos, sin, exp, log, ...)
+# call MKL's vector math library, which sets itself up at its first call
+# in the process. When that first call is split over several threads (a
+# tensor above the op's grain size), some threads can run their chunk in
+# MKL's low-accuracy mode: cos off by up to 1.5e-4 instead of 4e-8, in
+# 40 of 280 fresh processes on an Intel Xeon with AVX-512. One call on one
+# thread (a one-element tensor) sets the library up first (tests/
+# test_torch_route.py, test_first_parallel_cos_of_a_process_is_accurate).
+torch.cos(torch.zeros(1))
+
 __version__ = "0.1.0"

@@ -30,9 +30,10 @@ throughput rows: ``--only``, ``--demods``, ``--block``, ``--no-kernels``,
 ``--live-blocks``, ``--device``). ``demod``, ``rx`` and ``waterfall`` run
 their per-block step as a ``utils/compiled.py`` ``CompiledStep`` (the JAX
 CLI's ``jax.jit``): on the card one CUDA graph replay per block, on the
-CPU the same buffers run eagerly. ``rx --mesh`` stays eager: its
-collectives run between the ranks' steps, and a gloo collective cannot be
-captured in a graph.
+CPU the same buffers run eagerly. ``rx --mesh`` runs each rank's
+sharded step compiled too (``ShardedReceiver.make_step``): on the card a
+CUDA graph per rank with its NCCL collectives inside, on CPU ranks the
+same buffers run eagerly between gloo collectives.
 
 Frequency strings accept the reference's forms ("100.1", "100.1M",
 "98700k", raw Hz; ref: CubicSDR.cpp:80-141 frequency parsing).
@@ -279,6 +280,7 @@ def _rx_rank(rank: int, opts: dict) -> None:
                          mesh=mesh, spectrum_fft=fft, device=dev)
     controls = rx.place_controls(
         controls_from_manager(mgr, rx, keyed, sess.center_freq))
+    step = rx.make_step()        # the JAX CLI's jitted sharded step
     ck = opts["checkpoint"]
     state = rx.init_state()
     lead = rank == 0
@@ -295,7 +297,7 @@ def _rx_rank(rank: int, opts: dict) -> None:
         recorders: dict[int, RecordingSink] = {}
     n_blocks = 0
     for blk in src:
-        state, out = rx.step(state, rx.shard_iq(blk), controls)
+        state, out = step(state, (rx.shard_iq(blk), controls))
         out = rx.gather_outputs(out)
         n_blocks += 1
         if not lead:

@@ -355,7 +355,9 @@ def bench_multihost(timed_steps: int = 16, device="cuda") -> dict:
     its demo plan) timed at steady state against the same job at 1
     process. On the card, with fewer than 2 cards, both jobs run their
     collectives through gloo on host copies (``host_collectives``), so
-    the processes may share the card; the row's caveat says so."""
+    the processes may share the card; the row's caveat says so. Each
+    process runs the compiled sharded step but on host collectives,
+    where it runs eagerly: ``compiled`` reports the 2-process job's."""
     from cubicsdr_tpu_torch.parallel import multihost
     on_card = torch.device(device).type == "cuda"
     host = on_card and torch.cuda.device_count() < 2
@@ -368,7 +370,8 @@ def bench_multihost(timed_steps: int = 16, device="cuda") -> dict:
             "aggregate_msps": sum(t["aggregate_msps"] for t in timed)
             / len(timed),
             "ingest_scatter_share": max(t["ingest_scatter_share"]
-                                        for t in timed)}
+                                        for t in timed),
+            "compiled": all(r["compiled"] for r in rs)}
     m1, m2 = reps[1]["aggregate_msps"], reps[2]["aggregate_msps"]
     caveat = ("both processes share one host's cores (a loopback stand-in "
               "for a link between hosts); under-measures real multi-host "
@@ -380,7 +383,8 @@ def bench_multihost(timed_steps: int = 16, device="cuda") -> dict:
         "aggregate_msps_1proc": m1, "scaling_vs_1proc": m2 / m1,
         "efficiency_vs_2x": m2 / (2 * m1),
         "ingest_scatter_share": reps[2]["ingest_scatter_share"],
-        "host_collectives": host, "timed_steps": timed_steps,
+        "host_collectives": host, "compiled": reps[2]["compiled"],
+        "timed_steps": timed_steps,
         "host_cpus": os.cpu_count(), "caveat": caveat})
 
 

@@ -171,7 +171,8 @@ def compose_first_order(a: float, f, y_end, axis):
     the same on every shard)."""
     L = f.shape[-1]
     t, n_t = float(axis.index), float(axis.size)
-    a32 = torch.tensor(a, dtype=torch.float32, device=f.device)
+    # A fill, not an upload from the host: a CUDA graph can capture it.
+    a32 = torch.full((), a, dtype=torch.float32, device=f.device)
     y0 = affine_scan_1st_order(a, f, torch.zeros_like(y_end))
     F = a32 ** L                                  # decay across one shard
     Es = axis.all_gather(y0[..., -1])             # [n_t, ...]

@@ -3,7 +3,11 @@ the JAX package's ``__graft_entry__.dryrun_multichip``): one full sharded
 MIXED-modem step (FM + AM + BPSK) over a ('time' x 'chan') mesh of local
 ranks on tiny shapes — the channelizer's halo exchange, chan-sharded
 heterogeneous demod groups, the squelch collectives and the summed mix —
-with the reference's shape checks on the gathered outputs.
+with the reference's shape checks on the gathered outputs. The one step
+runs eagerly (``rx.step``), where the JAX dry run jits it: a shape check
+of one block gains nothing from two warm-ups and a capture, and the
+compiled step's own checks are ``rx --mesh``, ``multihost`` and the
+scaling harness.
 
     python -m cubicsdr_tpu_torch.parallel.dryrun [N] [--device cpu]
 """

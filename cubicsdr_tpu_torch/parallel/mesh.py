@@ -16,6 +16,16 @@ NCCL takes one rank per GPU. Ranks that share a card run their
 collectives, where the caller asks for it (``host_collectives``), through
 gloo on host copies of the card's tensors: the compute stays on the card,
 and the copies are the stand-in for a link between hosts.
+
+Under NCCL every collective here can be captured in a CUDA graph (the
+compiled sharded step, ``sharded.py`` ``make_step``): the wire copies and
+the receive buffers are allocated inside the step, so a capture takes
+them from its own pool; ``all_reduce``, ``all_gather_into_tensor`` and the
+batched send/receive run on NCCL's streams, and their waits are stream
+waits, not host waits. The communicators, the lazily made point-to-point
+ones included, come into being at the first eager call (a compiled step's
+warm-ups). A host-collective axis copies to the host and blocks on gloo:
+no capture can hold it, and ``make_step`` refuses it.
 """
 
 from __future__ import annotations
@@ -41,6 +51,9 @@ class Axis:
         self.ranks, self.host = tuple(ranks), bool(host)
 
     def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
+        """A contiguous copy to send or reduce in place: on the host
+        (``host``), else on ``t``'s device (inside a capture, from its
+        pool)."""
         return (t.detach().to("cpu", copy=True) if self.host
                 else t.detach().clone()).contiguous()
 

@@ -8,8 +8,11 @@ collectives are the only traffic between processes.
   * ``run_worker``    one process of an N-process job: initialises
                       ``torch.distributed``, builds the ('time', 'chan'=1)
                       mesh over all ranks, feeds its span per block
-                      (``shard_iq_local``) and checks its outputs against
-                      the unsharded ``ReceiverPipeline`` computed locally.
+                      (``shard_iq_local``) through the compiled sharded
+                      step (``make_step``; eager, by ``compiled=False``,
+                      on host collectives, which no graph can capture)
+                      and checks its outputs against the unsharded
+                      ``ReceiverPipeline`` computed locally, eagerly.
                       ``python -m cubicsdr_tpu_torch multihost --worker``.
   * ``launch_local``  spawns N worker processes on this host over loopback
                       and collects their JSON reports.
@@ -183,7 +186,9 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
     quantile < 5e-3, levels at 0.05, symbols where the unsharded slicer's
     margin is at least 1e-5). ``timed_steps`` appends a steady-state
     timing phase. ``host_collectives`` runs the collectives through gloo
-    on host copies (processes sharing a card)."""
+    on host copies (processes sharing a card). The sharded step is
+    compiled (``ShardedReceiver.make_step``) but on host collectives,
+    where it runs eagerly; the report's ``compiled`` says which."""
     from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
     from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
     from cubicsdr_tpu_torch.ops.planar import PC
@@ -206,6 +211,8 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
         for ctl, f in zip(controls, freqs):
             ctl["frequency"][:] = f
         placed = rx.place_controls(controls)
+        compiled = not host              # no graph holds a gloo host copy
+        step = rx.make_step(compiled=compiled)
         state = rx.init_state()
         if verify:
             pipe = ReceiverPipeline(fs, groups, num_channels=M,
@@ -222,7 +229,7 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
             iq = capture(rng, rx.block_len)
             local = np.stack([iq.real[lo:hi], iq.imag[lo:hi]])
             before = [k.launches for k in kernels]
-            state, out = rx.step(state, rx.shard_iq_local(local), placed)
+            state, out = step(state, (rx.shard_iq_local(local), placed))
             for k, b in zip(kernels, before):    # the sharded step's own
                 launches[k.__name__] += k.launches - b
             if verify:
@@ -239,14 +246,15 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
                "device": (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu"),
                "backend": dist.get_backend(),
-               "host_collectives": host, "plan": plan,
+               "host_collectives": host, "compiled": compiled,
+               "plan": plan,
                "block_len": rx.block_len, "steps": steps,
                "launches": launches, "verified": bool(verify),
                "worst": worst, "ok": True}
         if timed_steps:
             spans = [np.stack([b.real[lo:hi], b.imag[lo:hi]])
                      for b in (capture(rng, rx.block_len) for _ in range(4))]
-            state, out = rx.step(state, rx.shard_iq_local(spans[0]), placed)
+            state, out = step(state, (rx.shard_iq_local(spans[0]), placed))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             dist.barrier()
@@ -260,8 +268,8 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
             t_scatter = time.perf_counter() - t0
             t0 = time.perf_counter()
             for i in range(timed_steps):
-                state, out = rx.step(state, rx.shard_iq_local(spans[i % 4]),
-                                     placed)
+                state, out = step(state, (rx.shard_iq_local(spans[i % 4]),
+                                          placed))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t0

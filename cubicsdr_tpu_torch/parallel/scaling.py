@@ -10,6 +10,10 @@ rows check the machinery: the ranks share one host's cores. On the card
 a world that fits the cards runs NCCL; a larger one shares them only when
 the caller asks for ``host_collectives`` (gloo on host copies, as
 ``multihost --host-collectives``), and its rate is bound by those copies.
+Each rank runs the compiled sharded step (``ShardedReceiver.make_step``:
+a CUDA graph per rank under NCCL, the same buffers eagerly on CPU ranks)
+but on host collectives, which no graph can capture: there it runs
+eagerly, and the row's ``compiled`` says which.
 
     python -m cubicsdr_tpu_torch.parallel.scaling [--device cpu]
 """
@@ -59,6 +63,8 @@ def _scaling_rank(rank, cfg: dict, report_path: str) -> None:
     controls[0]["frequency"] = np.linspace(
         -fs / 4, fs / 4, rx.n_demods).astype(np.float32)
     controls = rx.place_controls(controls)
+    compiled = not cfg["host_collectives"]
+    step = rx.make_step(compiled=compiled)
     state = rx.init_state()
 
     def settle():
@@ -67,11 +73,11 @@ def _scaling_rank(rank, cfg: dict, report_path: str) -> None:
         dist.barrier()
 
     for _ in range(cfg["warmup"]):
-        state, outs = rx.step(state, iq, controls)
+        state, outs = step(state, (iq, controls))
     settle()
     t0 = time.perf_counter()
     for _ in range(cfg["n_iters"]):
-        state, outs = rx.step(state, iq, controls)
+        state, outs = step(state, (iq, controls))
     settle()
     dt = time.perf_counter() - t0
     if not torch.isfinite(outs["mix"]).all():
@@ -81,7 +87,8 @@ def _scaling_rank(rank, cfg: dict, report_path: str) -> None:
             json.dump({"devices": n, "block_len": rx.block_len,
                        "msps": rx.block_len * cfg["n_iters"] / dt / 1e6,
                        "backend": dist.get_backend(),
-                       "host_collectives": cfg["host_collectives"]}, f)
+                       "host_collectives": cfg["host_collectives"],
+                       "compiled": compiled}, f)
 
 
 def measure_scaling(sample_rate: float = 2_400_000, num_channels: int = 16,
@@ -98,7 +105,8 @@ def measure_scaling(sample_rate: float = 2_400_000, num_channels: int = 16,
     the cards share them (gloo on host copies); worlds that fit the cards
     run NCCL either way. Returns {"metric", "rows"}: each row has
     devices, block_len, msps (aggregate Msamples/s), efficiency (msps
-    over devices times the first row's), backend and host_collectives."""
+    over devices times the first row's), backend, host_collectives and
+    compiled (False exactly where host_collectives)."""
     from cubicsdr_tpu_torch.parallel.multihost import spawn_collect
     if device_counts is None:
         device_counts = _default_counts(device)

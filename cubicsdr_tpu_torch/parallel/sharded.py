@@ -25,6 +25,15 @@ State and outputs on a rank are its own shard. ``place_state`` cuts it
 from the JAX package's global layout (a leading [nt] axis, 'chan' rows in
 global order) and ``gather_state`` assembles that layout again, so state
 and checkpoints move between the packages.
+
+``make_step()`` is the JAX package's ``jax.jit(shard_map(...),
+donate_argnums=(0,))``: a ``utils/compiled.py`` ``CompiledStep`` per rank
+over static state, input and output buffers. On the card each rank warms
+up twice and captures one CUDA graph per output slot, its NCCL
+collectives inside the graphs; on the CPU (gloo) the same buffers, run
+eagerly. A mesh whose collectives go through gloo on host copies
+(``host_collectives``) cannot be captured: ``make_step`` refuses it, and
+its callers ask for ``compiled=False``.
 """
 
 from __future__ import annotations
@@ -395,10 +404,27 @@ class ShardedReceiver(nn.Module):
             outs["spectrum_mags"] = ta.all_gather(mag)
         return new_state, outs
 
-    def make_step(self):
-        """The step as a function step(state, iq_local, controls) ->
-        (state, outs), the JAX package's ``make_step`` interface."""
-        return self.step
+    def make_step(self, compiled: bool = True):
+        """The step as ``step(state, (iq_local, controls)) -> (state,
+        outs)``, the JAX package's jitted ``make_step`` (module
+        docstring): ``controls`` placed by ``place_controls``, which the
+        compiled step keeps in its static input buffers (a retune writes
+        into ``step.inputs``, or passes new placed controls, which are
+        copied there). ``compiled=False``: ``step`` run eagerly, with the
+        same calling convention. A mesh with host collectives raises
+        unless ``compiled=False``."""
+        if not compiled:
+            return lambda state, inputs: self.step(state, *inputs)
+        host = [n for n, ax in (("time", self.mesh.time),
+                                ("chan", self.mesh.chan)) if ax.host]
+        if host:
+            raise ValueError(
+                f"the sharded step cannot be compiled on a mesh with host "
+                f"collectives (axes {host}: gloo on host copies, which a "
+                f"CUDA graph cannot capture); ask for compiled=False")
+        from cubicsdr_tpu_torch.utils.compiled import CompiledStep
+        return CompiledStep(lambda state, inputs: self.step(state, *inputs),
+                            self.device)
 
     def gather_outputs(self, outs):
         """Global outputs from every rank's shard (a collective): mix

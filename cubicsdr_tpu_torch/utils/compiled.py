@@ -45,6 +45,16 @@ count the warm-ups' launches as any launch; what a capture records they
 count as ``captured``, and each replay adds its graph's launches to
 their ``launches``.
 
+A step with NCCL collectives (the compiled sharded step, one process
+per rank) builds on every rank at its first call, which every rank
+makes for the same block: the warm-ups run the collectives eagerly, in
+the step's order on every rank, and so make the communicators (the
+point-to-point ones too) before any capture; a capture records the
+collectives without running them, so the ranks need not capture in
+lockstep, and each replay then runs them in the same order on every
+rank. ``BUILD_GATE`` orders builds within one process only. A
+collective that NCCL refuses to capture raises, as any capture fault.
+
 On the CPU the same object keeps the same buffer rules: a call runs
 ``fn`` eagerly on the buffers and copies its results into the slot's
 output buffers and into the state buffers, so tests on the CPU see the

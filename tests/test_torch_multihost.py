@@ -9,7 +9,10 @@ gathered spectrum and the per-demod recordings are written, each
 recording equals the unsharded ``ReceiverPipeline`` at the same block
 length within the audio gates and the 16-bit quantum, and a checkpoint
 resume is bit-continuous (within 1 LSB, as the JAX test) and loads into
-the JAX package's sharded state layout."""
+the JAX package's sharded state layout. The command runs each rank's
+compiled sharded step (``make_step()``); a fourth run, the same ranks
+with the step run eagerly (``torch_sharded_ranks.rx_rank_eager``),
+writes the same bytes."""
 
 import contextlib
 import io
@@ -76,7 +79,8 @@ def _pcm(path):
 def runs(tmp_path_factory):
     """Three CLI runs: two blocks in one go (recording, checkpointed),
     then the first block with a checkpoint and the second resumed; and,
-    beside them, a 2-process ``multihost`` job."""
+    beside them, the first run's ranks with the eager step and a
+    2-process ``multihost`` job."""
     from cubicsdr_tpu_torch.io.sources import optimal_channel_count
     from cubicsdr_tpu_torch.parallel.sharded import ShardedReceiver
     from cubicsdr_tpu_torch.receiver import plan_from_manager
@@ -101,13 +105,25 @@ def runs(tmp_path_factory):
                       str(tmp / f"{part}.wav"), "--checkpoint",
                       str(tmp / "ck.npz"), *base]) for part in ("b1", "b2")]
 
+    def whole_eager():
+        from cubicsdr_tpu_torch.app.cli import build_parser
+        import torch_sharded_ranks as ranks
+        args = build_parser().parse_args(
+            ["rx", sess, str(tmp / "all.cf32"), "-o",
+             str(tmp / "eager.wav"), "--record", str(tmp / "erec"),
+             "--checkpoint", str(tmp / "eager.npz"), *base])
+        opts = {k: v for k, v in vars(args).items() if k != "fn"}
+        multihost.spawn_ranks(ranks.rx_rank_eager, 2, (opts,), "cpu")
+
     from cubicsdr_tpu_torch.parallel import multihost
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(whole), pool.submit(in_parts),
                 pool.submit(multihost.launch_local, num_processes=2,
-                            steps=2, device="cpu")]
+                            steps=2, device="cpu"),
+                pool.submit(whole_eager)]
         rcs = [jobs[0].result(), *jobs[1].result()]
         reports = jobs[2].result()
+        jobs[3].result()
     return {"tmp": tmp, "rcs": rcs, "iq": iq, "L": L, "specs": specs,
             "mgr": mgr, "reports": reports}
 
@@ -122,6 +138,25 @@ def test_rx_mesh_writes_wav_waterfall_and_recordings(runs):
     recs = sorted(p for p in os.listdir(tmp) if p.startswith("rec_demod"))
     assert len(recs) == 4
     assert os.path.exists(tmp / "all.npz")
+
+
+def test_rx_mesh_compiled_step_writes_the_eager_bytes(runs):
+    """``rx --mesh`` through the compiled sharded step writes the WAV,
+    the waterfall PNG, every recording and the checkpoint byte for byte
+    as the same ranks with the eager step."""
+    tmp = runs["tmp"]
+    pairs = [("all.wav", "eager.wav"),
+             ("all_waterfall.png", "eager_waterfall.png")]
+    recs = sorted(p for p in os.listdir(tmp) if p.startswith("rec_demod"))
+    assert len(recs) == 4
+    pairs += [(p, "e" + p) for p in recs]
+    for mine, eager in pairs:
+        with open(tmp / mine, "rb") as f, open(tmp / eager, "rb") as g:
+            assert f.read() == g.read(), mine
+    with np.load(tmp / "all.npz") as a, np.load(tmp / "eager.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_rx_mesh_recordings_match_unsharded_pipeline(runs):
@@ -222,6 +257,7 @@ def test_launch_local_two_processes_verify(runs):
         assert rep["ok"] and rep["verified"]
         assert rep["process_count"] == 2 and rep["global_devices"] == 2
         assert rep["backend"] == "gloo" and rep["device"] == "cpu"
+        assert rep["compiled"] is True
         assert rep["launches"] == {"pfbch2_planar": 0,
                                    "routed_shifted_resample": 0}
     for rep in reports:
@@ -293,4 +329,5 @@ def test_bench_multihost_row(capsys):
         row["scaling_vs_1proc"] / 2)
     assert 0 <= row["ingest_scatter_share"]
     assert row["host_collectives"] is False and row["timed_steps"] == 2
+    assert row["compiled"] is True
     assert "share one host's cores" in row["caveat"]

@@ -68,6 +68,54 @@ def test_plain_matches_pallas(rng, N, chan_idx):
     np.testing.assert_allclose(yi, pi, atol=5e-5)
 
 
+# A fresh interpreter: the port imported, then the modulation table of
+# test_plain_matches_pallas[24-None] (cos of [24, 759] phases, split over
+# the threads) as the process's first transcendental on a big tensor.
+_FIRST_COS = """
+import sys
+import numpy as np
+import torch
+import cubicsdr_tpu_torch  # noqa: F401
+torch.set_num_threads(8)
+om = np.random.default_rng(0xC0FFEE).uniform(-0.5, 0.5, 24).astype(np.float32)
+th = torch.remainder(torch.from_numpy(om)[:, None]
+                     * torch.arange(759, dtype=torch.float32),
+                     6.283185307179586)
+c = torch.cos(th)
+print(float((c.double() - torch.cos(th.double())).abs().max()))
+"""
+
+
+def test_first_parallel_cos_of_a_process_is_accurate():
+    """The route's plain modulation table in fresh processes. On the CPU,
+    torch's cos calls MKL's vector math, which sets itself up at its first
+    call; a first call split over threads ran some threads' chunks in
+    MKL's low-accuracy mode (cos off by 1.5e-4), which failed
+    ``test_plain_matches_pallas[24-None]`` (rows 6-8 and 21-23 of its 24
+    off by up to 1.8e-4) whenever its first cos was that call: in 40 of
+    280 fresh processes on an Intel Xeon with AVX-512. Importing
+    the port makes one single-threaded call first: in each of 16 fresh
+    processes the first parallel cos is within 1e-6 of float64 (without
+    that call, this test failed in two runs of three there)."""
+    import os
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ, OMP_NUM_THREADS="8")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(_):
+        out = subprocess.run([sys.executable, "-c", _FIRST_COS], env=env,
+                             cwd=root, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stderr[-2000:]
+        return float(out.stdout.split()[-1])
+
+    with ThreadPoolExecutor(8) as pool:
+        errs = list(pool.map(run, range(16)))
+    assert max(errs) < 1e-6, errs
+
+
 def test_plain_matches_gathered_folded_matmul(rng):
     """Routing inside the kernel == gather, then the port's folded
     NCO+resample matmul on the per-demod streams."""

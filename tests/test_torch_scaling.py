@@ -28,6 +28,7 @@ def test_scaling_harness_one_and_two_ranks():
     assert rows[1]["block_len"] == 2 * rows[0]["block_len"]
     assert {r["backend"] for r in rows} == {"gloo"}
     assert not any(r["host_collectives"] for r in rows)
+    assert all(r["compiled"] for r in rows)      # make_step() on CPU ranks
 
 
 def test_dryrun_multichip_two_ranks(capfd):

@@ -21,7 +21,14 @@ rounded to float32 by the jitted JAX step otherwise than by any eager
 evaluation (the port rounds it once, as a fused multiply-add, which
 matches most shards bit for bit): the taps may differ by one rotation
 per time shard (``_iq_gate``), and outputs that follow the carrier's
-phase are held by measures that such a rotation leaves as they are."""
+phase are held by measures that such a rotation leaves as they are.
+
+Each world's ranks then run the compiled step (``make_step()``, the JAX
+``make_step``'s jitted step) from the same state over the same blocks:
+its gathered outputs and state equal the eager step's bit for bit and
+pass the same gates against the JAX receiver; and a step whose state
+leaves go out through the halo and the permute and are then written
+over (``torch_sharded_ranks.halo_case``) gives the eager results."""
 
 import pickle
 from concurrent.futures import ThreadPoolExecutor
@@ -232,24 +239,17 @@ def _want_mix(o_j, o_p, controls, names):
     return mix.numpy()
 
 
-@pytest.mark.parametrize("nt,nc", MESHES)
-def test_sharded_outputs_match_jax_sharded(nt, nc, worlds):
-    """IQ taps, mix, audio, levels, squelch and symbols of the port's
-    ranks against the JAX ShardedReceiver over 2 blocks; every group but
-    I/Q fused, as in the JAX receiver, so each rank ran both kernels'
-    plain versions. Phase-following audio (CW, USB, I/Q) by
-    ``_phase_audio_gate``, and the mix by the audio gates against the
-    JAX mix with those rows taken from the port (``_want_mix``)."""
+def _match_jax(w, port_outs, nt, nc):
+    """The gates of ``test_sharded_outputs_match_jax_sharded`` on
+    ``port_outs``, the port's gathered outputs of the world ``w``."""
     from cubicsdr_tpu_torch.modems import make_modem
     from cubicsdr_tpu_torch.ops.planar import PC
-    w = worlds[(nt, nc)]
-    outs, port = w["outs"], w["port"]
+    outs = w["outs"]
     phase = (nt, nc) == PHASE_MESH
     names = [g.modem_name for g in ranks.groups(nc, phase)]
-    assert port["fused_route"] == w["fused"] == (
-        [True] * 5 + [False] if phase else [True] * 3)
     bpsk = make_modem("BPSK").build_kit(20000, batch_shape=(nc,))
-    for o_j, o_p in zip(outs, port["outs"]):
+    assert len(port_outs) == len(outs)
+    for o_j, o_p in zip(outs, port_outs):
         _audio_gate(o_p["mix"], _want_mix(o_j, o_p, w["controls"], names)
                     if phase else o_j["mix"])
         for gi, (g_j, g_p) in enumerate(zip(o_j["groups"], o_p["groups"])):
@@ -267,6 +267,59 @@ def test_sharded_outputs_match_jax_sharded(nt, nc, worlds):
                 assert firm.mean() > 0.99
                 np.testing.assert_array_equal(g_p["symbols"][firm],
                                               g_j["symbols"][firm])
+
+
+@pytest.mark.parametrize("nt,nc", MESHES)
+def test_sharded_outputs_match_jax_sharded(nt, nc, worlds):
+    """IQ taps, mix, audio, levels, squelch and symbols of the port's
+    ranks against the JAX ShardedReceiver over 2 blocks; every group but
+    I/Q fused, as in the JAX receiver, so each rank ran both kernels'
+    plain versions. Phase-following audio (CW, USB, I/Q) by
+    ``_phase_audio_gate``, and the mix by the audio gates against the
+    JAX mix with those rows taken from the port (``_want_mix``)."""
+    w = worlds[(nt, nc)]
+    port = w["port"]
+    phase = (nt, nc) == PHASE_MESH
+    assert port["fused_route"] == w["fused"] == (
+        [True] * 5 + [False] if phase else [True] * 3)
+    _match_jax(w, port["outs"], nt, nc)
+
+
+@pytest.mark.parametrize("nt,nc", MESHES)
+def test_compiled_step_equals_eager_bit_for_bit(nt, nc, worlds):
+    """``make_step()`` is a ``CompiledStep`` on every rank, hands back
+    its state buffers, and its gathered outputs (every group's iq, audio,
+    levels, flags and symbols, the mix) and final state equal the eager
+    step's exactly over the case's blocks."""
+    port = worlds[(nt, nc)]["port"]
+    assert port["compiled_type"] and port["compiled_state_is_buffers"]
+    for o_e, o_c in zip(port["outs"], port["compiled_outs"], strict=True):
+        pairs = list(zip(_leaves(o_e), _leaves(o_c), strict=True))
+        assert len(pairs) > 10
+        for (path, a), (path_c, b) in pairs:
+            assert path == path_c and a.dtype == b.dtype, path
+            np.testing.assert_array_equal(b, a, err_msg=str(path))
+    for (path, a), (_, b) in zip(_leaves(port["state"]),
+                                 _leaves(port["compiled_state"]),
+                                 strict=True):
+        np.testing.assert_array_equal(b, a, err_msg=str(path))
+
+
+@pytest.mark.parametrize("nt,nc", MESHES)
+def test_compiled_step_passes_the_jax_gates(nt, nc, worlds):
+    """The compiled step's outputs against the JAX ShardedReceiver's
+    jitted step at ``test_sharded_outputs_match_jax_sharded``'s gates."""
+    w = worlds[(nt, nc)]
+    _match_jax(w, w["port"]["compiled_outs"], nt, nc)
+
+
+@pytest.mark.parametrize("nt,nc", MESHES)
+def test_compiled_halo_step_equals_eager(nt, nc, worlds):
+    """State leaves sent through the halo and the permute, then written
+    over in the state buffer: the compiled step's outputs and state equal
+    the eager step's on every rank of the world, each call's outputs
+    still so after the next call (``torch_sharded_ranks.halo_case``)."""
+    assert worlds[(nt, nc)]["port"]["halo_case_mismatches"] == 0
 
 
 def _leaves(tree, path=()):
