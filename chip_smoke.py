@@ -130,6 +130,14 @@ Phases, each printing one line:
    on host copies), scan58, each rank verified against the unsharded
    pipeline it computes, and a timed phase, bound by those copies; each
    report says ``"compiled": false`` (no graph holds a host copy);
+19b. on a host with four cards or more, ``multihost`` with 4 worker
+   processes, one card each, under NCCL (time=4): scan58 at 8,192,000
+   samples per block (2,048,000 per rank), 3 verified steps and 8 timed,
+   each rank verified against the unsharded pipeline on its own card,
+   ``"compiled": true`` (its NCCL collectives inside its CUDA graphs)
+   and 1 PFB + 6 route launches per step besides its build's two
+   warm-ups; each rank's aggregate MS/s, ingest share and wall seconds
+   per part. On fewer cards one line says that it did not run and why;
 20. the complex64 pipeline (``dtype=torch.complex64``, whose default
    ``use_kernels=None`` resolves to no kernel, as the JAX package's
    complex64 path runs no Pallas kernel) on the card at demod16 and at
@@ -233,7 +241,8 @@ Phases, each printing one line:
 
 Then (29) one JSON line describing the kernels (launches on the demod16
 main path and on every other path, the CLI's, serve's, the sharded
-(eager and compiled) and the multihost ranks', the complex64 paths'
+(eager and compiled) and the multihost ranks' (the four-card job's
+where it ran), the complex64 paths'
 (zero), the graph
 captures' (per block), the compiled/eager turns', the captures' (per
 replay), the churn run's and the zoom phase's included, error,
@@ -1590,6 +1599,60 @@ def check_multihost(smi: str):
                      "note": "host-copy bound: every halo, sum and "
                              "gather leaves the card for gloo",
                      "card": smi}
+
+
+MULTIHOST_CARDS = 4
+
+
+def check_multihost_cards(smi: str):
+    """Phase 19b: the four-card ``multihost`` job as a user launches it
+    (``multihost --nprocs 4 --devices cuda --plan scan58 --steps 3
+    --timed-steps 8``), one rank per card under NCCL, each rank's step
+    compiled; the checks of phase 19 plus NCCL, ``"compiled": true`` and
+    the launches of 3 steps and the build's warm-ups. Returns (reports,
+    row), or (None, None) with a line saying why where the host has
+    fewer cards."""
+    from cubicsdr_tpu_torch.parallel import multihost
+    have = torch.cuda.device_count()
+    if have < MULTIHOST_CARDS:
+        line(f"multihost {MULTIHOST_CARDS} processes on "
+             f"{MULTIHOST_CARDS} cards (NCCL), scan58: not run, this host "
+             f"has {have} CUDA device(s)")
+        return None, None
+    steps = 3
+    t0 = time.perf_counter()
+    reports = multihost.launch_local(MULTIHOST_CARDS, steps=steps,
+                                     device="cuda", plan="scan58",
+                                     timed_steps=8, timeout_s=900)
+    wall = time.perf_counter() - t0
+    calls = build_warmups("cuda") + steps
+    want = {"pfbch2_planar": calls, "routed_shifted_resample": 6 * calls}
+    for rep in reports:
+        if not (rep["ok"] and rep["verified"]
+                and rep["process_count"] == MULTIHOST_CARDS
+                and not rep["host_collectives"]
+                and rep["backend"] == "nccl" and rep["compiled"] is True):
+            raise AssertionError(f"multihost report {rep}")
+        if rep["launches"] != want:
+            raise AssertionError(f"multihost rank {rep['process_id']} "
+                                 f"launches {rep['launches']}, expected "
+                                 f"{want}")
+    return reports, {"row": "multihost4_scan58_four_cards",
+                     "collectives": f"NCCL ({MULTIHOST_CARDS} ranks, one "
+                                    f"card each)",
+                     "compiled": True,
+                     "block_len": reports[0]["block_len"],
+                     "aggregate_msamples_per_s": [
+                         r["timed"]["aggregate_msps"] for r in reports],
+                     "ingest_scatter_share": [
+                         r["timed"]["ingest_scatter_share"]
+                         for r in reports],
+                     "seconds": [r["seconds"] for r in reports],
+                     "timed_steps": reports[0]["timed"]["steps"],
+                     "wall_s_with_start_up": wall,
+                     "devices": sorted({r["device"] for r in reports}),
+                     "card": smi}
+
 
 C64 = torch.complex64
 UNIFIED_ATOL = 2e-3     # planar vs complex64 (tests/test_unified_pipeline.py)
@@ -3289,6 +3352,15 @@ def main() -> int:
          f"launches per rank {[r['launches'] for r in mh_reports]}, worst "
          f"{json.dumps([r['worst'] for r in mh_reports])} [{smi}]")
     line(json.dumps(mh_row))
+    mh4_reports, mh4_row = check_multihost_cards(smi)
+    if mh4_reports:
+        line(f"multihost {MULTIHOST_CARDS} processes on {MULTIHOST_CARDS} "
+             f"cards (time={MULTIHOST_CARDS}, NCCL, compiled), scan58: "
+             f"every rank verified against the unsharded pipeline, "
+             f"launches per rank {[r['launches'] for r in mh4_reports]}, "
+             f"worst {json.dumps([r['worst'] for r in mh4_reports])} "
+             f"[{smi}]")
+        line(json.dumps(mh4_row))
 
     c64_launches, c64, c64_rows = check_complex64(smi)
     for name, r in c64.items():
@@ -3332,6 +3404,8 @@ def main() -> int:
                         sharded_compiled_launches[name],
                     "multihost_rank0_scan58":
                         mh_reports[0]["launches"][name],
+                    **{f"multihost4_rank{r['process_id']}_scan58":
+                       r["launches"][name] for r in mh4_reports or ()},
                     **{f"complex64_{k}": v[name]
                        for k, v in c64_launches.items()},
                     "complex64_pfbch_single_modes": modes_launches.get(

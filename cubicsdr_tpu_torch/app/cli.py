@@ -337,10 +337,15 @@ def cmd_multihost(args):
     """Distributed multi-process receive. Launcher mode (default): spawn N
     local worker processes over loopback and collect their reports.
     Worker mode (--worker): join the job as one process; on several hosts
-    run one worker per host with --coordinator pointing at host 0."""
+    run one worker per host with --coordinator pointing at host 0. A
+    worker dumps its threads' Python stacks to stderr on SIGUSR1, which
+    the launcher sends at its timeout before it kills the job."""
     import json
     from cubicsdr_tpu_torch.parallel import multihost
     if args.worker:
+        import faulthandler
+        import signal
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
         rep = multihost.run_worker(args.coordinator, args.nprocs,
                                    args.process_id, steps=args.steps,
                                    verify=not args.no_verify,

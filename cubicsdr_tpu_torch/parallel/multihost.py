@@ -15,7 +15,11 @@ collectives are the only traffic between processes.
                       ``ReceiverPipeline`` computed locally, eagerly.
                       ``python -m cubicsdr_tpu_torch multihost --worker``.
   * ``launch_local``  spawns N worker processes on this host over loopback
-                      and collects their JSON reports.
+                      and collects their JSON reports through
+                      ``wait_workers``, which watches every worker at
+                      once: the first that fails ends the job with its
+                      output, and a timeout ends it with every live
+                      worker's Python stacks.
 
 Processes on CPUs use gloo. Processes on CUDA devices use NCCL with one
 device per process. NCCL takes one rank per GPU, so local processes that
@@ -30,13 +34,18 @@ host copies of the card's tensors, the stand-in for a link between hosts.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -131,9 +140,24 @@ def _rank_main(rank, fn, world, init_method, device, args,
     if device == "cpu":                 # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     init_rank(init_method, world, rank, device, host_collectives)
+    in_group(fn, rank, *args)
+
+
+def in_group(fn, *args):
+    """``fn(*args)`` in the process group this rank has joined, then
+    leave the group (``destroy_process_group``). NCCL waits, as it
+    destroys a communicator, until every CUDA graph that captured its
+    collectives (a compiled sharded step's) is gone. So ``fn``'s frames,
+    whose locals hold such graphs, go first: on a return, and on a raise,
+    whose traceback would keep them alive through the destruction (every
+    rank would then hang at its end, or a failing rank never exit)."""
     try:
-        fn(rank, *args)
+        return fn(*args)
+    except BaseException as e:
+        traceback.clear_frames(e.__traceback__)
+        raise
     finally:
+        gc.collect()                     # graphs held in reference cycles
         dist.destroy_process_group()
 
 
@@ -173,6 +197,26 @@ def rank_device(device: str) -> torch.device:
             if device == "cuda" else torch.device("cpu"))
 
 
+# The parts of a worker whose wall seconds its report holds (``seconds``):
+# joining the process group, building the receiver, building the compiled
+# step (warm-ups and captures), the capture's synthesis summed over blocks,
+# verification (the unsharded pipeline and ``_verify_span``), the verified
+# steps, the timed loop, and the whole worker from its call to its report.
+WORKER_PARTS = ("init_group", "build_receiver", "build_step", "synthesis",
+                "verify", "verified_steps", "timed_loop")
+
+
+@contextlib.contextmanager
+def _part(seconds: dict, name: str, dev: torch.device | None = None):
+    """Add the wall seconds of the block to ``seconds[name]``; on the card
+    the block's own device work is waited for at its end."""
+    t0 = time.perf_counter()
+    yield
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds[name] += time.perf_counter() - t0
+
+
 def run_worker(coordinator: str, num_processes: int, process_id: int,
                steps: int = 2, verify: bool = True, timed_steps: int = 0,
                device: str = "cuda", plan: str = "demo",
@@ -188,7 +232,24 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
     timing phase. ``host_collectives`` runs the collectives through gloo
     on host copies (processes sharing a card). The sharded step is
     compiled (``ShardedReceiver.make_step``) but on host collectives,
-    where it runs eagerly; the report's ``compiled`` says which."""
+    where it runs eagerly; the report's ``compiled`` says which. The
+    report's ``seconds`` holds the wall seconds of each of
+    ``WORKER_PARTS`` and of the whole worker (``worker``); a part on the
+    card ends in a synchronisation, so a verified step holds its wait
+    for the other ranks' collectives."""
+    t_worker = time.perf_counter()
+    seconds = dict.fromkeys(WORKER_PARTS, 0.0)
+    host = host_collectives and device == "cuda"
+    with _part(seconds, "init_group"):
+        init_rank(f"tcp://{coordinator}", num_processes, process_id, device,
+                  host)
+    return in_group(_job, num_processes, process_id, steps, verify,
+                    timed_steps, device, plan, host, seconds, t_worker)
+
+
+def _job(num_processes, process_id, steps, verify, timed_steps, device,
+         plan, host, seconds, t_worker) -> dict:
+    """``run_worker``'s work once this rank has joined the group."""
     from cubicsdr_tpu_torch.ops.kernels.pfb import pfbch2_planar
     from cubicsdr_tpu_torch.ops.kernels.route import routed_shifted_resample
     from cubicsdr_tpu_torch.ops.planar import PC
@@ -196,90 +257,105 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
     from cubicsdr_tpu_torch.parallel.sharded import ShardedReceiver
     from cubicsdr_tpu_torch.receiver import ReceiverPipeline
 
-    host = host_collectives and device == "cuda"
-    init_rank(f"tcp://{coordinator}", num_processes, process_id, device,
-              host)
-    try:
+    dev = rank_device(device)
+    with _part(seconds, "build_receiver", dev):
         fs, M, groups, freqs, capture, block_len = PLANS[plan]()
-        dev = rank_device(device)
         mesh = make_receiver_mesh(n_time=num_processes, n_chan=1,
                                   device_type=dev.type,
                                   host_collectives=host)
-        rx = ShardedReceiver(fs, M, groups, mesh=mesh, block_len=block_len,
-                             device=dev)
+        rx = ShardedReceiver(fs, M, groups, mesh=mesh,
+                             block_len=block_len, device=dev)
         controls = rx.control_template()
         for ctl, f in zip(controls, freqs):
             ctl["frequency"][:] = f
         placed = rx.place_controls(controls)
-        compiled = not host              # no graph holds a gloo host copy
+        compiled = not host          # no graph holds a gloo host copy
         step = rx.make_step(compiled=compiled)
         state = rx.init_state()
-        if verify:
+    if verify:
+        with _part(seconds, "verify", dev):
             pipe = ReceiverPipeline(fs, groups, num_channels=M,
                                     block_len=rx.block_len, device=dev)
             ref_state = pipe.init_state()
-        lo = process_id * rx.local_len
-        hi = lo + rx.local_len
-        rng = np.random.default_rng(0xD15C0)
-        worst = {"audio_rms": 0.0, "audio_q995": 0.0, "level": 0.0,
-                 "symbols_checked": 0}
-        kernels = (pfbch2_planar, routed_shifted_resample)
-        launches = dict.fromkeys((k.__name__ for k in kernels), 0)
-        for _ in range(steps):
+    lo = process_id * rx.local_len
+    hi = lo + rx.local_len
+    rng = np.random.default_rng(0xD15C0)
+    worst = {"audio_rms": 0.0, "audio_q995": 0.0, "level": 0.0,
+             "symbols_checked": 0}
+    kernels = (pfbch2_planar, routed_shifted_resample)
+    launches = dict.fromkeys((k.__name__ for k in kernels), 0)
+    for i in range(steps):
+        with _part(seconds, "synthesis"):
             iq = capture(rng, rx.block_len)
             local = np.stack([iq.real[lo:hi], iq.imag[lo:hi]])
-            before = [k.launches for k in kernels]
-            state, out = step(state, (rx.shard_iq_local(local), placed))
-            for k, b in zip(kernels, before):    # the sharded step's own
-                launches[k.__name__] += k.launches - b
-            if verify:
+        before = [k.launches for k in kernels]
+        with _part(seconds, "verified_steps", dev):
+            inputs = (rx.shard_iq_local(local), placed)
+        if i == 0 and compiled:      # the build's warm-ups count
+            with _part(seconds, "build_step", dev):
+                step.prepare(state, inputs)
+                step.build()
+        with _part(seconds, "verified_steps", dev):
+            state, out = step(state, inputs)
+        for k, b in zip(kernels, before):    # the sharded step's own
+            launches[k.__name__] += k.launches - b
+        if verify:
+            with _part(seconds, "verify", dev):
                 blk = PC(torch.from_numpy(iq.real.copy()).to(dev),
                          torch.from_numpy(iq.imag.copy()).to(dev))
                 before = ref_state
                 ref_state, ref = pipe.apply(ref_state, (blk, controls))
                 _verify_span(rx, pipe, out, ref, before, controls, worst)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        rep = {"process_id": process_id,
-               "process_count": dist.get_world_size(),
-               "local_devices": 1, "global_devices": num_processes,
-               "device": (torch.cuda.get_device_name(dev)
-                          if dev.type == "cuda" else "cpu"),
-               "backend": dist.get_backend(),
-               "host_collectives": host, "compiled": compiled,
-               "plan": plan,
-               "block_len": rx.block_len, "steps": steps,
-               "launches": launches, "verified": bool(verify),
-               "worst": worst, "ok": True}
-        if timed_steps:
+    rep = {"process_id": process_id,
+           "process_count": dist.get_world_size(),
+           "local_devices": 1, "global_devices": num_processes,
+           "device": (torch.cuda.get_device_name(dev)
+                      if dev.type == "cuda" else "cpu"),
+           "backend": dist.get_backend(),
+           "host_collectives": host, "compiled": compiled,
+           "plan": plan,
+           "block_len": rx.block_len, "steps": steps,
+           "launches": launches, "verified": bool(verify),
+           "worst": worst, "ok": True}
+    if timed_steps:
+        with _part(seconds, "synthesis"):
             spans = [np.stack([b.real[lo:hi], b.imag[lo:hi]])
-                     for b in (capture(rng, rx.block_len) for _ in range(4))]
-            state, out = step(state, (rx.shard_iq_local(spans[0]), placed))
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            dist.barrier()
-            # The ingest scatter (host span -> this rank's device block)
-            # alone, then the steps with it.
-            t0 = time.perf_counter()
-            for i in range(timed_steps):
-                rx.shard_iq_local(spans[i % 4])
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            t_scatter = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            for i in range(timed_steps):
-                state, out = step(state, (rx.shard_iq_local(spans[i % 4]),
-                                          placed))
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            rep["timed"] = {"steps": timed_steps, "wall_s": dt,
-                            "aggregate_msps": timed_steps * rx.block_len
-                            / dt / 1e6, "ingest_scatter_s": t_scatter,
-                            "ingest_scatter_share": t_scatter / dt}
-        return rep
-    finally:
-        dist.destroy_process_group()
+                     for b in (capture(rng, rx.block_len)
+                               for _ in range(4))]
+        with _part(seconds, "timed_loop", dev):
+            rep["timed"] = _timed_loop(rx, step, state, placed, spans,
+                                       timed_steps, dev)
+    rep["seconds"] = {**seconds,
+                      "worker": time.perf_counter() - t_worker}
+    return rep
+
+
+def _timed_loop(rx, step, state, placed, spans, timed_steps: int,
+                dev: torch.device) -> dict:
+    """The steady-state phase: one step, a barrier, then the ingest
+    scatter (host span -> this rank's device block) alone and the steps
+    with it, each over ``timed_steps`` blocks cycling through ``spans``."""
+    state, out = step(state, (rx.shard_iq_local(spans[0]), placed))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for i in range(timed_steps):
+        rx.shard_iq_local(spans[i % len(spans)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_scatter = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(timed_steps):
+        state, out = step(state, (rx.shard_iq_local(spans[i % len(spans)]),
+                                  placed))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"steps": timed_steps, "wall_s": dt,
+            "aggregate_msps": timed_steps * rx.block_len / dt / 1e6,
+            "ingest_scatter_s": t_scatter,
+            "ingest_scatter_share": t_scatter / dt}
 
 
 # Modems whose audio follows the carrier's phase (the rest demodulate
@@ -396,46 +472,160 @@ def _verify_span(rx, pipe, out, ref, ref_state_before, controls,
         worst["symbols_checked"] += int(firm.sum())
 
 
+class JobFailed(RuntimeError):
+    """A job of local processes that failed or ran out of time
+    (``wait_workers``). ``rank`` is the first rank that exited non-zero
+    (None on a timeout); ``outputs`` each rank's (stdout, stderr)."""
+
+    def __init__(self, message: str, rank: int | None, outputs: list):
+        super().__init__(message)
+        self.rank = rank
+        self.outputs = outputs
+
+
+def _drain(pipe, chunks: list) -> None:
+    """Read the bytes pipe ``pipe`` to its end into ``chunks`` as it is
+    written."""
+    for chunk in iter(lambda: pipe.read1(1 << 16), b""):
+        chunks.append(chunk)
+    pipe.close()
+
+
+def _tail(text: str, n: int) -> str:
+    return text if len(text) <= n else "..." + text[-n:]
+
+
+def _rank_text(rank: int, state: str, out: str, err: str) -> str:
+    return (f"--- rank {rank}: {state} ---\n"
+            f"[stdout, tail]\n{_tail(out, 2000)}\n"
+            f"[stderr, tail]\n{_tail(err, 8000)}")
+
+
+# Seconds between asking a job's live workers for their stacks and the kill.
+STACK_GRACE_S = 3.0
+
+
+def wait_workers(procs: list,
+                 timeout_s: float = 600.0) -> list[tuple[str, str]]:
+    """Wait for a job's processes, all at once. ``procs[r]`` is rank r's
+    ``subprocess.Popen``, started with stdout and stderr on bytes pipes; one
+    thread per pipe drains it while the process writes, so no process
+    blocks on a full pipe. Returns each rank's (stdout, stderr) once every
+    rank has exited 0.
+
+    The first rank to exit non-zero ends the job: the others are killed
+    (a rank waiting on a collective would wait for ever) and ``JobFailed``
+    names that rank, its exit code and its output's tail, with every
+    other rank's tail below. At ``timeout_s`` every live rank is sent
+    SIGUSR1, on which a worker dumps its threads' Python stacks to stderr
+    (``faulthandler.register``, ``multihost --worker``); ``STACK_GRACE_S``
+    later the job is killed and ``JobFailed`` holds, for each rank,
+    whether it was live or had exited, and its tail with the stacks. No
+    process of ``procs`` is left running when this returns or raises."""
+    chunks = [([], []) for _ in procs]
+    readers = [threading.Thread(target=_drain, args=(pipe, buf),
+                                daemon=True)
+               for p, (out, err) in zip(procs, chunks)
+               for pipe, buf in ((p.stdout, out), (p.stderr, err))]
+    for t in readers:
+        t.start()
+
+    def outputs():
+        for t in readers:
+            t.join(timeout=10.0)
+        return [tuple(b"".join(c).decode(errors="replace") for c in pair)
+                for pair in chunks]
+
+    deadline = time.monotonic() + timeout_s
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed or None not in codes:
+                break
+            if time.monotonic() >= deadline:
+                live = [p for p in procs if p.poll() is None]
+                for p in live:
+                    p.send_signal(signal.SIGUSR1)
+                time.sleep(STACK_GRACE_S)
+                states = [f"exited with code {p.returncode}" if p not in live
+                          else "live at the timeout, stacks asked for, "
+                               "killed" for p in procs]
+                for p in live:
+                    p.kill()
+                    p.wait()
+                outs = outputs()
+                raise JobFailed(
+                    f"the job of {len(procs)} processes did not end within "
+                    f"{timeout_s:g} s; {len(live)} were live\n"
+                    + "\n".join(_rank_text(r, st, *o) for r, (st, o)
+                                in enumerate(zip(states, outs))),
+                    None, outs)
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = outputs()
+    if not failed:
+        return outs
+    first = failed[0]
+    states = [f"exited with code {c}" if c is not None
+              else "live, killed when the first rank failed"
+              for c in codes]
+    others = [_rank_text(r, states[r], *outs[r]) for r in range(len(procs))
+              if r != first]
+    raise JobFailed(
+        f"rank {first} of {len(procs)} exited with code {codes[first]}; "
+        f"the job was ended\n"
+        + "\n".join([_rank_text(first, states[first], *outs[first]),
+                     *others]), first, outs)
+
+
 def launch_local(num_processes: int = 2, steps: int = 2, port: int = 0,
                  timeout_s: float = 600.0, timed_steps: int = 0,
                  device: str = "cuda", plan: str = "demo",
                  verify: bool = True,
                  host_collectives: bool = False) -> list[dict]:
     """Spawn ``num_processes`` worker processes on this host (loopback
-    rendezvous) and collect their JSON reports. On the card, processes
-    that outnumber the cards are refused unless ``host_collectives``."""
+    rendezvous) and collect their JSON reports (``wait_workers``: a
+    failing worker ends the job with its output, ``JobFailed``; so does
+    ``timeout_s``, with every live worker's stacks). On the card,
+    processes that outnumber the cards are refused unless
+    ``host_collectives``."""
     check_local_ranks(num_processes, device, host_collectives)
     port = port or free_port()
     env = dict(os.environ)
     env.setdefault("OMP_NUM_THREADS", "2")
     procs = []
-    for pid in range(num_processes):
-        cmd = [sys.executable, "-m", "cubicsdr_tpu_torch", "multihost",
-               "--worker", "--coordinator", f"127.0.0.1:{port}",
-               "--nprocs", str(num_processes), "--process-id", str(pid),
-               "--steps", str(steps), "--timed-steps", str(timed_steps),
-               "--devices", device, "--plan", plan]
-        if not verify:
-            cmd.append("--no-verify")
-        if host_collectives:
-            cmd.append("--host-collectives")
-        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True))
-    reports, failed = [], []
-    for p in procs:
-        try:
-            out, err = p.communicate(timeout=timeout_s)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        if p.returncode != 0:
-            failed.append(f"worker rc={p.returncode}\nstdout:{out[-2000:]}"
-                          f"\nstderr:{err[-2000:]}")
-            continue
-        line = [ln for ln in out.splitlines()
-                if ln.startswith('{"process_id"')][-1]
-        reports.append(json.loads(line))
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    try:
+        for pid in range(num_processes):
+            cmd = [sys.executable, "-m", "cubicsdr_tpu_torch", "multihost",
+                   "--worker", "--coordinator", f"127.0.0.1:{port}",
+                   "--nprocs", str(num_processes), "--process-id", str(pid),
+                   "--steps", str(steps), "--timed-steps", str(timed_steps),
+                   "--devices", device, "--plan", plan]
+            if not verify:
+                cmd.append("--no-verify")
+            if host_collectives:
+                cmd.append("--host-collectives")
+            procs.append(subprocess.Popen(cmd, env=env,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE))
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    outs = wait_workers(procs, timeout_s)
+    reports = []
+    for rank, (out, err) in enumerate(outs):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith('{"process_id"')]
+        if not lines:
+            raise JobFailed(f"rank {rank} exited 0 without a report\n"
+                            + _rank_text(rank, "exited with code 0", out,
+                                         err), rank, outs)
+        reports.append(json.loads(lines[-1]))
     return reports

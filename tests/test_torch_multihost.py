@@ -250,6 +250,7 @@ def test_sharded_checkpoint_is_the_jax_layout(tmp_path):
 def test_launch_local_two_processes_verify(runs):
     """A real 2-process job: each process feeds only its own span and
     verifies its outputs against the unsharded pipeline."""
+    from cubicsdr_tpu_torch.parallel import multihost
     reports = runs["reports"]
     assert len(reports) == 2
     assert sorted(r["process_id"] for r in reports) == [0, 1]
@@ -260,6 +261,13 @@ def test_launch_local_two_processes_verify(runs):
         assert rep["compiled"] is True
         assert rep["launches"] == {"pfbch2_planar": 0,
                                    "routed_shifted_resample": 0}
+        # The wall seconds of each part of the worker, within its whole.
+        parts = rep["seconds"]
+        assert set(parts) == {*multihost.WORKER_PARTS, "worker"}
+        assert all(v >= 0 for v in parts.values())
+        assert parts["verify"] > 0 and parts["verified_steps"] > 0
+        assert sum(parts[k] for k in multihost.WORKER_PARTS) <= \
+            parts["worker"]
     for rep in reports:
         assert rep["worst"]["symbol_agreement"] > 0.999
 
