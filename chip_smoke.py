@@ -239,15 +239,32 @@ Phases, each printing one line:
    level, a cold level; the longest consumer block at its 256 ms
    period while a background build ran, 0 drops).
 
-Then (29) one JSON line describing the kernels (launches on the demod16
+29. the port's evidence modes (``cubicsdr_tpu_torch/utils/soak.py``, in
+   process, each with the kernels' counters set to 0 just before it and
+   read just after, both kernels launched): ``churn_soak`` for 2 minutes
+   on the ``serve`` shape (2.4 MS/s cs16, M=6, the block length pinned
+   over the four plans its cycle visits; two warm cycles, then REST
+   cycles of 15 control ops, a checkpoint and a restore), ``soak`` at
+   4.8 MS/s cs8 for 1 minute and ``digital_check`` (FM, QPSK, QAM-16,
+   QAM-256, APSK-16 and GMSK at 8 MS/s against the CPU's unfused chain),
+   each failing the script when it misses its criteria (the churn soak:
+   no consumer exception, 0 drops, 0.98x real time, the survivor's tone
+   in all but one 250 ms window, an RSS slope under 0.5 MiB/min and no
+   higher ``memory_reserved`` in the last third than in the first; the
+   soak: 0 drops and 0.98x real time; the digital check: agreement >=
+   0.999 on decision-stable samples, EVM delta < 0.02, stable fraction >
+   0.5 per modem, the FM tone within 5 Hz of 1 kHz).
+
+Then (30) one JSON line describing the kernels (launches on the demod16
 main path and on every other path, the CLI's, serve's, the sharded
 (eager and compiled) and the multihost ranks' (the four-card job's
 where it ran), the complex64 paths'
 (zero), the graph
 captures' (per block), the compiled/eager turns', the captures' (per
-replay), the churn run's and the zoom phase's included, error,
-cold/warm/plain ms, bound, roofline share, every case; no single
-PyTorch call computes either function, so ``library_ms`` is null),
+replay), the churn run's, the zoom phase's and the evidence modes'
+included, error, cold/warm/plain ms, bound, roofline share, every case;
+no single PyTorch call computes either function, so ``library_ms`` is
+null),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0)
 and no result line is printed. There is no CPU fallback: without a CUDA
@@ -1212,21 +1229,10 @@ def feed_block(lr, src) -> None:
         raise AssertionError("serve: a block did not run")
 
 
-def http(port: int, path: str, body=None) -> bytes:
-    """A request to the local WebViewer, never through a proxy."""
-    import urllib.request
-    req = urllib.request.Request(
-        f"http://127.0.0.1:{port}{path}",
-        data=None if body is None else json.dumps(body).encode(),
-        method="GET" if body is None else "POST")
-    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
-    with opener.open(req, timeout=120) as r:
-        return r.read()
-
-
 def check_serve(sess: Path, cap: Path, plan, card: str = "cuda"):
     """Phase 14 on ``card``. Returns (launches after the rebuilds,
     summary)."""
+    from cubicsdr_tpu_torch.utils.soak import http
     add_freq = CENTER + plan.freqs[1][1]           # NBFM station 1
     edits = [(name, dict(cmd, freq=add_freq) if name == "add" else cmd)
              for name, cmd in SERVE_EDITS]
@@ -2498,63 +2504,36 @@ def check_captures(smi: str) -> list[dict]:
 CHURN_TONE = 700.0      # scan58's FM row 0 station
 
 
-class PacedSource:
-    """The survivor's FM station at ``rate`` samples/s, delivered in
-    chunks of ``chunk`` at their real-time deadlines, as a receiver's SDR
-    delivers: the ring absorbs a stall of the consumer and sheds what
-    overflows it (counted as ingest drops). One second of the station
+def station_source(rate: float, offset: float, chunk: int = 1 << 16):
+    """The survivor's FM station at ``rate`` samples/s as a
+    ``utils/soak.py`` ``PacedSource``: planar float32 chunks of ``chunk``
+    samples at their real-time deadlines, as a receiver's SDR delivers
+    (the ring absorbs a stall of the consumer and sheds what overflows
+    it, counted as ingest drops). Chunks, not blocks: the plan edits of
+    phase 27 change the block length. One second of the station
     (``io.sources.SyntheticSource``, its carrier and tone whole numbers
     of cycles per second, so the loop is seamless) is synthesised up
     front and looped, so that producing costs the host a copy."""
-
-    def __init__(self, rate: float, offset: float, chunk: int = 1 << 16):
-        from cubicsdr_tpu_torch.io.sources import Station, SyntheticSource
-        n = int(rate)
-        if float(offset) != int(offset) or n != rate:
-            raise ValueError("a seamless 1 s loop needs whole-Hz rates")
-        self.loop = next(SyntheticSource(rate, n, [Station(
-            offset, "fm", audio_freq=CHURN_TONE, amplitude=0.5)],
-            noise=0.01, seed=7))
-        self.rate, self.chunk = float(rate), chunk
-        self.stop_flag = False
-        self.late_s = 0.0            # how far the producer fell behind
-
-    def __iter__(self):
-        t0, k, pos, n = time.perf_counter(), 0, 0, self.loop.shape[0]
-        while not self.stop_flag:
-            idx = (pos + np.arange(self.chunk)) % n
-            blk = self.loop[idx]
-            pos = (pos + self.chunk) % n
-            k += 1
-            ahead = t0 + k * self.chunk / self.rate - time.perf_counter()
-            if ahead > 0:
-                time.sleep(ahead)
-            else:
-                self.late_s = max(self.late_s, -ahead)
-            yield blk
-
-    def stop(self):
-        self.stop_flag = True
+    from cubicsdr_tpu_torch.io.sources import Station, SyntheticSource
+    from cubicsdr_tpu_torch.utils.soak import PacedSource
+    n = int(rate)
+    if float(offset) != int(offset) or n != rate:
+        raise ValueError("a seamless 1 s loop needs whole-Hz rates")
+    iq = next(SyntheticSource(rate, n, [Station(
+        offset, "fm", audio_freq=CHURN_TONE, amplitude=0.5)],
+        noise=0.01, seed=7))
+    return PacedSource(np.stack([iq.real, iq.imag]).astype(np.float32),
+                       chunk, rate)
 
 
 def tone_windows(path: Path, tone: float) -> tuple[int, int]:
     """(windows holding ``tone``, windows) over 250 ms windows of a PCM16
     WAV: the peak above 100 Hz within 40 Hz of the tone
     (tests/test_churn.py's test)."""
-    with wave.open(str(path)) as w:
-        rate = w.getframerate()
-        ch = w.getnchannels()
-        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
-    audio = pcm.reshape(-1, ch).mean(axis=1) / 32767.0
-    win = rate // 4
-    f = np.fft.rfftfreq(win, 1.0 / rate)
-    good = 0
-    n_win = audio.size // win
-    for i in range(n_win):
-        x = np.abs(np.fft.rfft(audio[i * win:(i + 1) * win]
-                               * np.hanning(win)))
-        good += bool(abs(f[int(np.argmax(x * (f > 100.0)))] - tone) < 40.0)
-    return good, n_win
+    from cubicsdr_tpu_torch.utils.soak import ToneWindows
+    tw = ToneWindows(tone)
+    tw.add_file(path)
+    return tw.good, tw.windows
 
 
 def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
@@ -2583,10 +2562,11 @@ def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
     from cubicsdr_tpu_torch.app.webview import WebViewer
     from cubicsdr_tpu_torch.receiver import (
         ReceiverPipeline, controls_from_manager, plan_from_manager)
+    from cubicsdr_tpu_torch.utils.soak import http
     mgr = plan.manager(CENTER)
     specs, keyed = plan_from_manager(mgr)
     rx = ReceiverPipeline(plan.fs, specs, device=card)
-    src = PacedSource(plan.fs, plan.freqs[0][0])
+    src = station_source(plan.fs, plan.freqs[0][0])
     lr = LiveReceiver(rx, controls_from_manager(mgr, rx, keyed, CENTER),
                       src, center_freq=CENTER, waterfall_fft=1024,
                       waterfall_lines=64)
@@ -2667,11 +2647,10 @@ def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
     # The receiver's first blocks build its step (the first eager calls
     # of a plan on the card also build the libraries' plans): run three
     # blocks of the station before the producer starts at capture rate.
-    loop = src.loop.reshape(-1)
     for b in range(3):
-        blk = loop[b * rx.block_len:(b + 1) * rx.block_len]
-        if not lr.ring.write(np.ascontiguousarray(blk.real),
-                             np.ascontiguousarray(blk.imag)):
+        blk = src.loop[:, b * rx.block_len:(b + 1) * rx.block_len]
+        if not lr.ring.write(np.ascontiguousarray(blk[0]),
+                             np.ascontiguousarray(blk[1])):
             raise AssertionError("churn: the ring refused a warm-up block")
     if lr.run_blocks(max_blocks=3, wait=False) != 3:
         raise AssertionError("churn: the warm-up blocks did not run")
@@ -2811,6 +2790,41 @@ def check_churn(tmp: Path, plan, card: str = "cuda", cycles: int = 3,
     return launches, summary
 
 
+SOAK_MODES = (("soak_churn_serve_cs16",
+                ["churn_soak", "--minutes", "2", "--format", "cs16"]),
+               ("soak_cs8", ["soak", "--format", "cs8", "--minutes", "1"]),
+               ("soak_digital_check", ["digital_check"]))
+
+
+def check_soaks(smi: str) -> dict:
+    """Phase 29: ``utils/soak.py``'s modes in process (``SOAK_MODES``),
+    the kernels' counters set to 0 just before each and read just after.
+    Fails when a mode misses its criteria or a kernel did not launch.
+    Returns each mode's launches."""
+    from cubicsdr_tpu_torch.utils import soak
+    launches = {}
+    for name, argv in SOAK_MODES:
+        args = soak.parser().parse_args(argv)
+        join_prewarms()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = soak.MODES[args.mode](args)
+        wall = time.perf_counter() - t0
+        join_prewarms()
+        launches[name] = read_launches()
+        samples = res.pop("samples", None)
+        line(f"{name} ({' '.join(argv)}): {wall:.1f} s, launches "
+             f"{launches[name]}, {json.dumps(res)} [{smi}]")
+        if samples:
+            line(f"{name} samples: {json.dumps(samples)}")
+        if not res["ok"]:
+            raise AssertionError(f"{name} missed its criteria")
+        if not all(launches[name].values()):
+            raise AssertionError(f"{name}: a kernel did not launch: "
+                                 f"{launches[name]}")
+    return launches
+
+
 # Phase 28's zoom walk at live16: +1 MHz at 1 MHz, two zoom-ins, a retune
 # at the same level, then back out to the start (a revisit) and past it
 # (2 MHz, a level the background prewarm built).
@@ -2819,17 +2833,12 @@ ZOOM_WALK = ((1e6, 1e6), (1e6, 500e3), (1e6, 250e3), (1.2e6, 250e3),
 ZOOM_STAGE = 3          # blocks per stage of the walk
 
 
-def join_prewarms(timeout: float = 120.0) -> None:
-    """Wait for the zoom views' background level builds to end: a
-    device-wide synchronisation (``torch.cuda.synchronize``, as
-    ``reset_launches`` makes) would invalidate a capture in progress on
-    their thread (``utils/compiled.py``)."""
-    import threading
-    for th in threading.enumerate():
-        if th.name == "cs-zoom-prewarm":
-            th.join(timeout)
-            if th.is_alive():
-                raise AssertionError("a background zoom build hung")
+def join_prewarms() -> None:
+    """``utils/soak.py``'s: wait for the zoom views' background level
+    builds before a device-wide synchronisation (``reset_launches``
+    makes one); raises if one hangs."""
+    from cubicsdr_tpu_torch.utils.soak import join_prewarms as join
+    join()
 
 
 def zoom_notes(lr) -> list:
@@ -2982,7 +2991,7 @@ def zoom_gap(name, rx, controls, smi: str,
         if background:
             spans.append((t, time.perf_counter()))
 
-    src = PacedSource(FS, 1_100_000)
+    src = station_source(FS, 1_100_000)
     lr = LiveReceiver(rx, controls, src, waterfall_fft=1024,
                       waterfall_lines=64)
     shown, dispatched, exc = [], [], []
@@ -3384,6 +3393,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         churn_launches, _ = check_churn(Path(tmp), scan58(), smi=smi)
     zoom_launches = check_zoom(smi)
+    soak_launches = check_soaks(smi)
 
     def kernel_row(name, source, replaces, cases):
         main = cases[0]           # the main path's shape (demod16)
@@ -3420,7 +3430,8 @@ def main() -> int:
                        r["launches_per_replay"][name] for r in capture_rows},
                     "churn_scan58": churn_launches[name],
                     **{f"{run}_{mode}": v[mode][name]
-                       for run, v in zoom_launches.items() for mode in v}},
+                       for run, v in zoom_launches.items() for mode in v},
+                    **{k: v[name] for k, v in soak_launches.items()}},
                 "live_launches": live_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main["cold_ms"], "cold_ms": main["cold_ms"],

@@ -1310,7 +1310,9 @@ class LiveReceiver:
             zoom.feed(p)
         if mix is not None:
             with self.audio_cond:
-                self.audio_tap.append(mix)
+                # A copy: ``mix`` is a view of the block's whole pull,
+                # which the tap's 64 blocks would otherwise keep.
+                self.audio_tap.append(mix.copy())
                 self._audio_seq += 1
                 self.audio_cond.notify_all()
             for name, sink in list(self.audio_sinks.items()):
@@ -1358,6 +1360,20 @@ class LiveReceiver:
             gi_off += rows
         if self.on_block is not None:
             self.on_block({"groups": hgroups, "mix": mix})
+
+    def cache_stats(self) -> dict:
+        """The compiled-step caches: steps and post-steps built, post-steps
+        held, and the zoom view's (the stashed one while zoom is off)
+        built levels, level builds and evictions (None without a view)."""
+        z = self.zoom if self.zoom is not None else self._zoom_stash
+        return {
+            "step_builds": self.step_builds, "post_builds": self.post_builds,
+            "post_cache": sum(len(e["posts"])
+                              for e in list(self._post_cache.values())),
+            "zoom_levels_built": None if z is None else z.levels_built,
+            "zoom_level_builds": None if z is None else z.level_builds,
+            "zoom_level_evictions": (None if z is None
+                                     else z.level_evictions)}
 
     def stop(self):
         self._stop.set()

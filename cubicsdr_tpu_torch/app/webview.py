@@ -1681,6 +1681,11 @@ class WebViewer:
 
         return Handler
 
+    @property
+    def plan_cache_size(self) -> int:
+        """Pipelines held by the plan cache (at most 8)."""
+        return len(self._plan_cache)
+
     def start(self):
         self._httpd = ThreadingHTTPServer((self.host, self.port),
                                           self._handler_class())

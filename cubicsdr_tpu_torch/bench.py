@@ -171,11 +171,11 @@ def _host_context(device) -> dict:
     if torch.device(device).type == "cuda":
         ctx["card"] = card_name()
         ctx["kind"] = torch.cuda.get_device_name(torch.device(device))
-        ctx["wire_mbps_probe"] = _wire_probe(device)
+        ctx["wire_mbps_probe"] = wire_probe(device)
     return ctx
 
 
-def _wire_probe(device, planes: np.ndarray | None = None) -> dict:
+def wire_probe(device, planes: np.ndarray | None = None) -> dict:
     """MB/s of a pageable->device and of a pinned->device copy of
     ``planes`` (default: two float32 planes of 2^20 samples), each the
     mean of two copies after a warm one."""
@@ -315,7 +315,7 @@ def bench_live(n_demods: int = 16, n_blocks: int = 240, block_len=None,
                                  compiled=mode == "compiled")
             lrs[mode].metrics = Metrics()
         planes = lrs["compiled"].source.blocks[0]
-        wire = (_wire_probe(rx.device, planes)
+        wire = (wire_probe(rx.device, planes)
                 if rx.device.type == "cuda" else None)
         windows = min(WINDOWS, n_blocks)
         per = n_blocks // windows

@@ -249,6 +249,35 @@ class IdentityResampler(StreamOp):
         return state, x
 
 
+class PlanarResampler(ResamplerChain):
+    """Stateful multi-stage P/Q resampler on planar-complex (PC) or real
+    float32 data, each stage in the Toeplitz form; the state is each
+    stage's input history, as the JAX package's ``PlanarResampler``.
+    Runs on the card unless ``device`` says otherwise.
+
+    ``apply(state, x)`` with x: PC or real [..., L], L % Q == 0; returns
+    (state, y) with y of length L*P/Q."""
+
+    def __init__(self, P: int, Q: int, batch_shape: tuple = (),
+                 complex_data: bool = True, taps_per_phase: int = 24,
+                 as_db: float = 60.0, max_stage: int = 64, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PlanarResampler runs on the card by default and this host "
+                "has no CUDA device; pass device='cpu' to run on the host")
+        super().__init__(P, Q, batch_shape=batch_shape,
+                         dtype=PLANAR if complex_data else torch.float32,
+                         taps_per_phase=taps_per_phase, as_db=as_db,
+                         max_stage=max_stage)
+        self.complex_data = complex_data
+        self.to(device)
+
+    def out_len(self, in_len: int) -> int:
+        assert in_len % self.Q == 0, (in_len, self.Q)
+        return in_len // self.Q * self.P
+
+
 def make_resampler(P: int, Q: int, batch_shape: tuple = (), dtype=PLANAR,
                    taps_per_phase: int = 24, as_db: float = 60.0,
                    max_stage: int = 64):

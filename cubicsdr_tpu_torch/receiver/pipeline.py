@@ -175,6 +175,11 @@ class ReceiverPipeline(StreamOp):
         self.to(device)
 
     # --- static shape bookkeeping ---
+    @property
+    def decim(self) -> int:
+        """Input samples per channel sample (M, M/2 or 1)."""
+        return self._decim
+
     def group_block_multiple(self, gi: int) -> int:
         fe = self.frontends[gi]
         b_k = self._modems[gi].block_multiple(int(fe.bandwidth),

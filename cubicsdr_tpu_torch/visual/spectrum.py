@@ -400,6 +400,17 @@ class ZoomSpectrumView:
         stream order behind the blocks already fed)."""
         return self._level.step.state[1]
 
+    @property
+    def levels_built(self) -> int:
+        """Levels whose step is built (at most ``ZOOM_LEVELS``)."""
+        return sum(lv.built for lv in list(self._front_cache.values()))
+
+    @property
+    def level_build_ms(self) -> tuple:
+        """(ms, ms per part) of the current level's step build."""
+        step = self._level.step
+        return step.build_ms, step.build_split_ms
+
     def load_display_state(self, st) -> None:
         """Load ``st`` (the display state's tensors) into the current
         level's state buffers, in stream order."""

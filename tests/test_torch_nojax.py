@@ -121,6 +121,22 @@ def test_compiled_step_imports_without_jax():
          "import cubicsdr_tpu_torch.bench\n" + _CHECK)
 
 
+# The evidence modes (soaks and the digital check).
+_SOAK = ("cubicsdr_tpu_torch.utils.soak",)
+
+
+def test_soak_imports_without_jax():
+    """The evidence modes, with the live loop, web control plane and
+    pipelines their modes import when they run, load neither jax nor any
+    module of the JAX package, and the package walk finds them."""
+    assert set(_SOAK) <= set(_port_modules())
+    _run("import sys\n" + "".join(f"import {m}\n" for m in _SOAK)
+         + "import cubicsdr_tpu_torch.app.runner\n"
+         "import cubicsdr_tpu_torch.app.webview\n"
+         "import cubicsdr_tpu_torch.bench\n"
+         "import cubicsdr_tpu_torch.modems.digital\n" + _CHECK)
+
+
 @pytest.mark.parametrize("module", [
     "cubicsdr_tpu_torch.app.runner", "cubicsdr_tpu_torch.app.checkpoint",
     "cubicsdr_tpu_torch.visual", "cubicsdr_tpu_torch.receiver.manager",

@@ -446,3 +446,17 @@ def test_zoom_off_during_the_deferred_finish():
     lr._fanout_finish(disp, PC(*out["iq"]), out, planes)
     assert fed == [(2, L)]
     lr.stop()
+
+
+def test_audio_tap_keeps_only_the_mixes():
+    """The audio tap's 64 blocks hold each block's mix and nothing of the
+    block's packed pull, of which the mix is a view (a tap of views kept
+    64 whole pulls, several times the mixes' bytes)."""
+    lr, got = run_live(LiveReceiver, T, synth_blocks(70))
+    tap = list(lr.audio_tap)
+    assert len(tap) == lr.audio_tap.maxlen == 64
+    held = {id(m if m.base is None else m.base):
+            (m if m.base is None else m.base).nbytes for m in tap}
+    assert sum(held.values()) <= 64 * got[-1]["mix"].nbytes
+    for m, g in zip(tap, got[-64:]):
+        np.testing.assert_array_equal(m, g["mix"])
