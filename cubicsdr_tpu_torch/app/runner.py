@@ -67,6 +67,24 @@ view's points ride the packed post-step, which reads them before the
 view's next replay. ``compiled=False`` runs the eager closures (and an
 eager zoom view), asked for explicitly (an A/B switch), never as a
 fallback.
+
+Spans (``utils/metrics.py``; declared below, read by ``block_spans``):
+each block's path is stamped into ``metrics.spans`` under its sequence
+number, the order the consumer dispatches blocks in (``on_block``
+receives it as ``seq``). The producer's ``ingest.write`` (value: the
+samples written, negative where the ring shed them) and
+``ingest.ready``, the accepted write that holds a block's last sample,
+once per block made ready (value: the block's place, its ring
+generation and its number there); the staging worker's ``stage`` from
+the ring holding the block (a write in progress holds the ring's lock
+before that) to the host->device copy's enqueue (value: the block's
+place), child ``stage.slot_wait`` where a pinned slot's last copy holds
+it; the consumer's ``step.dispatch``, ``post.dispatch``, ``pull.wait``
+and ``fanout`` (child ``on_block``); in the compiled loop on the card
+``device.step`` and ``device.post``, the device ns of the step's and the
+post-step's graphs (the zoom view's not included), read after the pull.
+The consumer counts ``starved_polls``, the staging worker
+``slot_waits``.
 """
 
 from __future__ import annotations
@@ -84,7 +102,8 @@ from cubicsdr_tpu_torch.io.recorder import RecordingSink, SquelchOption
 from cubicsdr_tpu_torch.native import SampleRing
 from cubicsdr_tpu_torch.ops.planar import PC, PLANAR, as_pc, to_complex
 from cubicsdr_tpu_torch.utils.compiled import CompiledStep
-from cubicsdr_tpu_torch.utils.metrics import Metrics
+from cubicsdr_tpu_torch.utils.metrics import (
+    SPAN_BLOCKS, SPANS, Metrics, close_range, now, open_range)
 from cubicsdr_tpu_torch.utils.tree import tree_map
 from cubicsdr_tpu_torch.visual import (
     FFTDataDistributor, PlanarSpectrumProcessor, SpectrumProcessor,
@@ -177,6 +196,53 @@ def _copy_controls(bufs: list, snap: list) -> None:
             t.copy_(v)
 
 
+# The live loop's spans (module docstring): each thread's ring holds its
+# spans of the last SPAN_BLOCKS blocks (up to four ring writes each).
+for _thread, _per_block in (("producer", 5), ("staging", 2),
+                            ("consumer", 5), ("device", 2)):
+    SPANS.ring(_thread, _per_block * SPAN_BLOCKS)
+_WRITE = SPANS.name("ingest.write", "producer")
+_READY = SPANS.name("ingest.ready", "producer", "ingest.write")
+_STAGE = SPANS.name("stage", "staging")
+_SLOT_WAIT = SPANS.name("stage.slot_wait", "staging", "stage")
+_STEP = SPANS.name("step.dispatch", "consumer")
+_POST = SPANS.name("post.dispatch", "consumer")
+_PULL = SPANS.name("pull.wait", "consumer")
+_FANOUT = SPANS.name("fanout", "consumer")
+_ON_BLOCK = SPANS.name("on_block", "consumer", "fanout")
+_DEV_STEP = SPANS.name("device.step", "device")
+_DEV_POST = SPANS.name("device.post", "device")
+BLOCK_SPANS = ("stage", "stage.slot_wait", "step.dispatch",
+               "post.dispatch", "pull.wait", "fanout", "on_block")
+_PLACE = 1 << 32            # a block's place: generation * _PLACE + number
+
+
+def block_spans(log, first: int = 0, stop: Optional[int] = None) -> dict:
+    """The blocks numbered ``first`` to ``stop`` - 1 that ``log`` (a
+    ``LiveReceiver``'s ``metrics.spans``) still holds, by number:
+    ``seq``; per span of ``BLOCK_SPANS`` (start, end) ns arrays (0:
+    none); ``device.step`` and ``device.post`` ms (nan: none);
+    ``ready``, the end of the ring write holding the block's last sample
+    in ns (0: no longer held)."""
+    b = log.by_seq(BLOCK_SPANS + ("device.step", "device.post"), first,
+                   stop)
+    out = {"seq": b["seq"]}
+    for name in BLOCK_SPANS:
+        out[name] = b[name][:2]
+    for name in ("device.step", "device.post"):
+        a, e, _ = b[name]
+        out[name] = np.where(e > 0, (e - a) / 1e6, np.nan)
+    r = log.rows(("ingest.ready",))
+    order = np.argsort(r["value"], kind="stable")
+    places, ends = r["value"][order], r["end"][order]
+    place = b["stage"][2]
+    out["ready"] = np.zeros(len(place), np.int64)
+    if len(places):
+        j = np.minimum(np.searchsorted(places, place), len(places) - 1)
+        out["ready"] = np.where(places[j] == place, ends[j], 0)
+    return out
+
+
 class _Staged(NamedTuple):
     """One ring block on its way to the device."""
     iq: tuple          # (re, im) on the device, ring dtype
@@ -185,6 +251,8 @@ class _Staged(NamedTuple):
     gen: int           # ring/format generation it was read from
     ready: object      # CUDA event of its host->device copy, or None
     slot: int          # its staging slot (-1 on the CPU)
+    place: int         # generation * _PLACE + its number there (from 1)
+    spans: tuple       # stage (start, end), slot wait (start, end) or ()
 
 
 class LiveReceiver:
@@ -302,6 +370,10 @@ class LiveReceiver:
         self._pull_slots: list = [None] * N_SLOTS   # pinned pull buffers
         self._pull_events: list = [None] * N_SLOTS
         self._pull_next = 0
+        self._seq = 0                        # the next block's number
+        self._accepted = (0, 0)              # (generation, samples) written
+        self._read = (0, 0)                  # (generation, blocks) staged
+        self._post_last = None               # the post-step last replayed
         self._h2d_stream = None
         self._producer: Optional[threading.Thread] = None
         self._producer_gen = 0               # bumped to retire a producer
@@ -353,8 +425,22 @@ class LiveReceiver:
                     k = 1.0 / float(np.iinfo(re.dtype).max + 1)
                     re = np.asarray(re, np.float32) * k
                     im = np.asarray(im, np.float32) * k
-                ok = self.ring.write(np.ascontiguousarray(re, dt),
-                                     np.ascontiguousarray(im, dt))
+                re = np.ascontiguousarray(re, dt)
+                im = np.ascontiguousarray(im, dt)
+                ring_gen, ring, L = self._ingest
+                t0 = now()
+                rng = open_range("ingest.write")
+                ok = ring.write(re, im)
+                close_range(rng)
+                t1 = now()
+                sp = self.metrics.spans
+                sp.add(_WRITE, -1, t0, t1, n if ok else -n)
+                g, before = self._accepted
+                before = before if g == ring_gen else 0
+                total = before + (n if ok else 0)
+                self._accepted = (ring_gen, total)
+                for k in range(before // L + 1, total // L + 1):
+                    sp.add(_READY, -1, t0, t1, ring_gen * _PLACE + k)
                 self.metrics.tick("ingest", n, dropped=0 if ok else n)
                 ov = getattr(source, "overflow_events", 0)
                 if ov:
@@ -509,6 +595,15 @@ class LiveReceiver:
         with self.step_lock:
             return tree_map(lambda t: t.detach().cpu().numpy(), self.state)
 
+    def post_state(self) -> tuple:
+        """Host (numpy) copy of the post-step's state: the distributor's,
+        the main spectrum's and the demod view's (empty while off), taken
+        under the step lock, in stream order behind the post-step that
+        produced it."""
+        with self.step_lock:
+            return tree_map(lambda t: t.detach().cpu().numpy(),
+                            (self._st_dist, self._st_spec, self._st_dv))
+
     def set_state(self, state) -> None:
         """Install ``state`` (tensors or numpy leaves, the current plan's
         structure) as the stream's state under the step lock: copied into
@@ -644,7 +739,7 @@ class LiveReceiver:
     def _h2d(self, re: np.ndarray, im: np.ndarray):
         """Copy ring planes through a persistent pinned slot into its
         persistent device buffer on the staging stream; returns (device
-        [2, n], event, slot)."""
+        [2, n], event, slot, the slot wait's (start, end) or ())."""
         n = re.shape[0]
         if (not self._slots or self._slots[0].shape[1] != n
                 or self._slots[0].numpy().dtype != re.dtype):
@@ -659,8 +754,15 @@ class LiveReceiver:
             self._h2d_stream = torch.cuda.Stream(self.device)
         i = self._slot_next
         self._slot_next = (i + 1) % N_SLOTS
-        if self._slot_events[i] is not None:
-            self._slot_events[i].synchronize()   # its last copy is done
+        wait = ()
+        last = self._slot_events[i]
+        if last is not None and not last.query():
+            self.metrics.count("slot_waits")
+            t0 = now()
+            rng = open_range("stage.slot_wait")
+            last.synchronize()                   # its last copy is done
+            close_range(rng)
+            wait = (t0, now())
         slot, dev, free = self._slots[i], self._dev_slots[i], \
             self._slot_free[i]
         host = slot.numpy()
@@ -673,24 +775,34 @@ class LiveReceiver:
             ev = torch.cuda.Event()
             ev.record(self._h2d_stream)
         self._slot_events[i] = ev
-        return dev, ev, i
+        return dev, ev, i, wait
 
     def _stage_block(self):
         """Read one block from the ring and start its host->device copy.
         Runs on the staging worker, so the copy of block i+1 overlaps
         block i's dispatch and block i-1's packed pull."""
         gen, ring, L = self._ingest
+        if ring.fill < L:      # waits out a write that holds the ring
+            return None
+        t0 = now()
+        rng = open_range("stage")
         got = ring.read(L)
         if got is None:
+            close_range(rng)
             return None
+        g, k = self._read
+        k = (k if g == gen else 0) + 1
+        self._read = (gen, k)
         re, im = got
         if self._cuda:
-            dev, ev, slot = self._h2d(re, im)
+            dev, ev, slot, wait = self._h2d(re, im)
             iq = (dev[0], dev[1])
         else:
-            iq, ev, slot = (torch.from_numpy(re), torch.from_numpy(im)), \
-                None, -1
-        return _Staged(iq, (re, im), L, gen, ev, slot)
+            iq, ev, slot, wait = (torch.from_numpy(re),
+                                  torch.from_numpy(im)), None, -1, ()
+        close_range(rng)
+        return _Staged(iq, (re, im), L, gen, ev, slot, gen * _PLACE + k,
+                       (t0, now()) + wait)
 
     def run_blocks(self, max_blocks: Optional[int] = None,
                    wait: bool = True) -> int:
@@ -730,14 +842,28 @@ class LiveReceiver:
                         self.metrics.tick("pipeline", 0, dropped=blk.n)
                         blk = None
                     else:
+                        t0 = now()
+                        rng = open_range("step.dispatch")
                         iq = blk.iq
                         if blk.ready is not None:
                             cur = torch.cuda.current_stream(self.device)
                             cur.wait_event(blk.ready)
                         snap, ctl_dev = self._device_controls()
+                        replay = open_range("step.replay")
                         self.state, out = self.step(self.state,
                                                     (iq, ctl_dev))
+                        close_range(replay)
+                        close_range(rng)
+                        t1 = now()
+                        rng = open_range("post.dispatch")
                         disp = self._fanout_dispatch(out, snap)
+                        close_range(rng)
+                        t2 = now()
+                        timed = None
+                        if self._cuda and self.compiled:
+                            step = self._step_cache[self.pipeline]
+                            post = self._post_last
+                            timed = (step, step.last, post, post.last)
                         if blk.ready is not None:
                             # The staged buffer's last reader (the eager
                             # step, the post-step and the zoom view read
@@ -748,7 +874,17 @@ class LiveReceiver:
                 if blk is not None:
                     self.metrics.tick("pipeline", blk.n)
                     n += 1
-                    dispatched = (disp, iq, out, blk.planes)
+                    seq = self._seq
+                    self._seq = seq + 1
+                    sp = self.metrics.spans
+                    sp.add(_STAGE, seq, blk.spans[0], blk.spans[1],
+                           blk.place)
+                    if len(blk.spans) > 2:
+                        sp.add(_SLOT_WAIT, seq, blk.spans[2], blk.spans[3])
+                    sp.add(_STEP, seq, t0, t1)
+                    sp.add(_POST, seq, t1, t2)
+                    dispatched = (disp, iq, out, blk.planes,
+                                  (sp, seq, timed))
             if dispatched is None:
                 if pending is not None:     # starved: drain the lookahead
                     self._fanout_finish(*pending)
@@ -762,6 +898,7 @@ class LiveReceiver:
                             or self.ring.fill >= self.pipeline.block_len):
                         continue
                     break
+                self.metrics.count("starved_polls")
                 self._stop.wait(0.001)
                 continue
             if pending is not None:
@@ -1229,6 +1366,7 @@ class LiveReceiver:
         (self._st_dist, self._st_spec, self._st_dv), packed = post(
             (self._st_dist, self._st_spec, self._st_dv),
             (out["iq"], mix, g_in, dv_tap, dv_row, extra))
+        self._post_last = post
         # Snapshot what the deferred finish needs AT DISPATCH (under the
         # step lock): the packed shapes, this block's row identities and
         # the per-row (gain, active) controls, host values only.
@@ -1247,11 +1385,21 @@ class LiveReceiver:
                 None if mix is None else tuple(mix.shape), pack,
                 self.spec.fft_size, keys, ctls, dv_n, zoom_h)
 
-    def _fanout_finish(self, disp, iq, out, planes=None):
+    def _fanout_finish(self, disp, iq, out, planes=None, mark=None):
+        """Finish a dispatched block on the host. ``mark`` (the loop's:
+        its span log, number, and in the compiled loop on the card its
+        step and post-step with the slots they replayed) records its
+        spans. A compiled step's slot is replayed again two calls on,
+        after this finish."""
         pull, mix_shape, pack, P, keys, ctls, dv_n, zoom_h = disp
         host, ev = pull
+        t0 = now()
+        rng = open_range("pull.wait")
         if ev is not None:
             ev.synchronize()                 # the ONE device->host pull
+        close_range(rng)
+        t1 = now()
+        rng = open_range("fanout")
         # Views of the block escape (audio tap, sinks, on_block), and the
         # pinned buffer is reused N_SLOTS blocks on (on the CPU: the
         # post-step's output, reused two blocks on).
@@ -1358,8 +1506,26 @@ class LiveReceiver:
                 self._recorders[key].write(audio[pos],
                                            bool(squelched[ri]))
             gi_off += rows
+        on_span = (0, 0)
         if self.on_block is not None:
-            self.on_block({"groups": hgroups, "mix": mix})
+            t2 = now()
+            r_on = open_range("on_block")
+            self.on_block({"groups": hgroups, "mix": mix,
+                           "seq": None if mark is None else mark[1]})
+            close_range(r_on)
+            on_span = (t2, now())
+        close_range(rng)
+        if mark is not None:
+            sp, seq, timed = mark
+            t3 = now()
+            sp.add(_PULL, seq, t0, t1)
+            sp.add(_FANOUT, seq, t1, t3)
+            if on_span[0]:
+                sp.add(_ON_BLOCK, seq, *on_span)
+            if timed is not None:
+                step, k, post, j = timed
+                sp.add(_DEV_STEP, seq, 0, round(step.device_ms(k) * 1e6))
+                sp.add(_DEV_POST, seq, 0, round(post.device_ms(j) * 1e6))
 
     def cache_stats(self) -> dict:
         """The compiled-step caches: steps and post-steps built, post-steps

@@ -58,17 +58,29 @@ collective that NCCL refuses to capture raises, as any capture fault.
 On the CPU the same object keeps the same buffer rules: a call runs
 ``fn`` eagerly on the buffers and copies its results into the slot's
 output buffers and into the state buffers, so tests on the CPU see the
-aliasing that the card would.
+aliasing that the card would. Nothing is captured there: the first
+call is the build, its eager run the warm-up (it builds what the step
+builds at its first call).
+
+A build is the span ``compiled.build`` of ``utils/metrics.py``
+``SPANS.process``, numbered by build, with a child ``compiled.warmup``
+or ``compiled.capture`` per part; each part ends synchronised. On the
+card each graph records a pair of timing events at its start and its
+end (event nodes inside the graph, so a replay costs the host nothing
+more): ``device_ms(k)`` reads slot k's last replay, and ``last`` is the
+slot of the last call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
-import time
 
 import torch
 
+from cubicsdr_tpu_torch.utils.metrics import SPANS, close_range, now, \
+    open_range
 from cubicsdr_tpu_torch.utils.tree import tree_leaves, tree_map
 
 WARMUPS = 2             # eager calls before the captures (bench.py's)
@@ -153,15 +165,47 @@ def _copy_into(bufs, given, what: str) -> None:
         d.copy_(s)
 
 
+SPANS.ring("build", 1024)
+_BUILD = SPANS.name("compiled.build", "build")
+_PART = {"warmups": SPANS.name("compiled.warmup", "build", "compiled.build"),
+         "captures": SPANS.name("compiled.capture", "build",
+                                "compiled.build")}
+_BUILDS = itertools.count()
+
+
+class _BuildSpans:
+    """The spans of one build: ``compiled.build`` from this object's
+    creation to ``end``, with a child per part."""
+
+    def __init__(self):
+        self.range = open_range("compiled.build")
+        self.seq = next(_BUILDS)
+        self.start = now()
+        self.split = {"warmups": [], "captures": []}
+
+    def part(self, kind: str, start: int) -> None:
+        """End a part ("warmups" or "captures") begun at ``start`` ns."""
+        t = now()
+        SPANS.process.add(_PART[kind], self.seq, start, t)
+        self.split[kind].append((t - start) / 1e6)
+
+    def end(self, step: "CompiledStep") -> None:
+        close_range(self.range)
+        SPANS.process.add(_BUILD, self.seq, self.start, now())
+        step.build_ms = sum(map(sum, self.split.values()))
+        step.build_split_ms = self.split
+
+
 class CompiledStep:
     """A compiled per-block step over static buffers (module docstring).
 
     ``state`` and ``inputs`` are the buffers (None until the first call
     or ``prepare``); ``outputs[k]`` slot k's outputs; ``launches[k]`` the
     kernel launches slot k's graph holds (CUDA only); ``build_ms`` the
-    wall ms of the CUDA build (warm-ups and captures) and
-    ``build_split_ms`` its parts (each warm-up, each capture,
-    synchronised)."""
+    wall ms of the build (CUDA: warm-ups and captures; CPU: the first
+    call) and ``build_split_ms`` its parts (each warm-up, each capture,
+    synchronised), both read from its spans; ``last`` the slot of the
+    last call."""
 
     def __init__(self, fn, device, slots: int = 2):
         if slots < 1:
@@ -175,7 +219,9 @@ class CompiledStep:
         self.launches = [None] * self.slots
         self.build_ms = None
         self.build_split_ms = None
+        self.last = None
         self._graphs = None
+        self._timing = None
         self._next = 0
 
     def _own(self, x) -> torch.Tensor:
@@ -225,7 +271,7 @@ class CompiledStep:
         else:
             _copy_into(self.state, state, "state")
             _copy_into(self.inputs, inputs, "inputs")
-        k = self._next
+        k = self.last = self._next
         self._next = (k + 1) % self.slots
         if self.device.type == "cuda":
             if self._graphs is None:
@@ -234,10 +280,26 @@ class CompiledStep:
             for kern in counted_kernels():
                 kern.launches += self.launches[k][kern.__name__]
             return self.state, self.outputs[k]
+        spans = _BuildSpans() if self.build_ms is None else None
+        t0 = now()
+        rng = open_range("compiled.warmup") if spans is not None else None
         new_state, out = self.fn(self.state, self.inputs)
         out = self._keep(k, out)
         self._write_state(new_state)
+        if spans is not None:
+            close_range(rng)
+            spans.part("warmups", t0)
+            spans.end(self)
         return self.state, out
+
+    def device_ms(self, k: int):
+        """(CUDA) Device ms of slot k's last replay, from its graph's
+        start to its end; call it once the replay is done. None on the
+        CPU."""
+        if self._timing is None:
+            return None
+        start, end = self._timing[k]
+        return start.elapsed_time(end)
 
     def _keep(self, k: int, out):
         """(CPU) ``out`` copied into slot k's output buffers."""
@@ -268,42 +330,48 @@ class CompiledStep:
         that yields after each part, never inside a stream's or a
         capture's context."""
         dev = self.device
-        split = {"warmups": [], "captures": []}
+        spans = _BuildSpans()
 
-        def lap(part, t0):
+        def lap(part, t0, rng):
             torch.cuda.synchronize(dev)
-            split[part].append((time.perf_counter() - t0) * 1e3)
+            close_range(rng)
+            spans.part(part, t0)
 
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         for _ in range(WARMUPS):
-            t0 = time.perf_counter()
+            t0, rng = now(), open_range("compiled.warmup")
             with torch.cuda.stream(side):
                 self.fn(tree_map(torch.clone, self.state), self.inputs)
-            lap("warmups", t0)
+            lap("warmups", t0, rng)
             yield
         cur.wait_stream(side)
         owned = {_ptr(t) for t in (tree_leaves(self.state)
                                    + tree_leaves(self.inputs))}
-        graphs, outs, counts = [], [], []
+        graphs, outs, counts, timing = [], [], [], []
         for k in range(self.slots):
-            t0 = time.perf_counter()
+            t0, rng = now(), open_range("compiled.capture")
             g = torch.cuda.CUDAGraph()
+            ev = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                       for _ in range(2))
             before = _captured_counts()
             with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                ev[0].record()
                 new_state, out = self.fn(self.state, self.inputs)
                 _leaves(out, "output")
                 out = tree_map(
                     lambda t: t.clone() if _ptr(t) in owned else t, out)
                 self._write_state(new_state)
-            lap("captures", t0)
+                ev[1].record()
+            lap("captures", t0, rng)
             after = _captured_counts()
+            timing.append(ev)
             graphs.append(g)
             outs.append(out)
             counts.append({n: after[n] - before[n] for n in after})
             if k + 1 < self.slots:
                 yield
         self._graphs, self.outputs, self.launches = graphs, outs, counts
-        self.build_ms = sum(map(sum, split.values()))
-        self.build_split_ms = split
+        self._timing = timing
+        spans.end(self)

@@ -1,8 +1,7 @@
-"""Where the port's receive step and live loop spend their time on one
-CUDA device.
+"""Where the port's receive step spends its time on one CUDA device.
 
     python3 -m cubicsdr_tpu_torch.utils.profile_step [--demods 16 256]
-                                                     [--blocks 10] [--live]
+                                                     [--blocks 10]
                                                      [--plan scan58]
                                                      [--dtype complex64]
                                                      [--graph]
@@ -20,13 +19,9 @@ complex64 pipeline (no kernel of the port's own) at the same block.
 K = 8 blocks captured once in a CUDA graph (``bench.GraphedScan``) and
 replayed, so the host dispatches one replay per K blocks (planar only).
 
-``--live`` profiles the live loop instead (demod16, a back-pressured
-cycling source, 1024-point 64-line waterfall; the compiled loop, whose
-step and post-step replay CUDA graphs), one line per ring format:
-first an unprofiled run timed per consumer stage on the host clock (the
-step, the post-step dispatch, the finish with its pull; the rest is the
-wait for the staging worker), then a profiled run for device time and
-idle share. Needs a CUDA device; there is no CPU fallback.
+The live loop times itself: its spans and counters
+(``utils/metrics.py``) are read from ``LiveReceiver.metrics.snapshot()``
+and ``app/runner.py`` ``block_spans(metrics.spans)``.
 """
 
 from __future__ import annotations
@@ -147,61 +142,10 @@ def _device_ms(prof, n_blocks: int, top: int):
          "launches_per_block": c / n_blocks} for t, c, k in rows[:top]]
 
 
-def profile_live(ingest_dtype, n_blocks: int, top: int = 8,
-                 compiled: bool = True) -> dict:
-    import numpy as np
-
-    from cubicsdr_tpu_torch.utils.synth import live_row
-    dev = torch.device("cuda", 0)
-    rx = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 16)],
-                          use_kernels=True, block_len=BLOCK, device=dev)
-    lr = live_row(rx, ingest_dtype, n_warm=8, compiled=compiled)
-    spent = {"step": 0.0, "post_dispatch": 0.0, "finish": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[key] += time.perf_counter() - t
-        return run
-
-    lr.step = timed(lr.step, "step")
-    lr._fanout_dispatch = timed(lr._fanout_dispatch, "post_dispatch")
-    lr._fanout_finish = timed(lr._fanout_finish, "finish")
-    t0 = time.perf_counter()
-    lr.run_blocks(max_blocks=n_blocks)
-    wall = time.perf_counter() - t0
-    stages = {k: v / n_blocks * 1e3 for k, v in spent.items()}
-    stages["other_and_staging_wait"] = (wall - sum(spent.values())
-                                        ) / n_blocks * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        lr.run_blocks(max_blocks=n_blocks)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    lr.stop()
-    dev_ms, rows = _device_ms(prof, n_blocks, top)
-    pwall_ms = pwall / n_blocks * 1e3
-    return {"row": "live16", "ingest": np.dtype(ingest_dtype).name,
-            "compiled": compiled,
-            "wall_ms_per_block": wall / n_blocks * 1e3,
-            "host_ms_per_block_by_stage": stages,
-            "profiled_wall_ms_per_block": pwall_ms,
-            "device_ms_per_block": dev_ms,
-            "device_idle_share": max(0.0, 1.0 - dev_ms / pwall_ms),
-            "top": rows}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--demods", type=int, nargs="+", default=[16, 256])
     ap.add_argument("--blocks", type=int, default=10)
-    ap.add_argument("--live", action="store_true",
-                    help="profile the live loop per ring format")
     ap.add_argument("--plan", choices=["scan58"],
                     help="profile a mixed plan of utils/synth.py")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="planar",
@@ -209,16 +153,11 @@ def main() -> int:
     ap.add_argument("--graph", action="store_true",
                     help="profile the bench's CUDA graph of K steps")
     args = ap.parse_args()
-    if args.graph and (args.live or args.dtype != "planar"):
+    if args.graph and args.dtype != "planar":
         ap.error("--graph profiles the planar receive step only")
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 1
-    if args.live:
-        import numpy as np
-        for dt in (np.float32, np.int16, np.int8):
-            print(json.dumps(profile_live(dt, args.blocks)), flush=True)
-        return 0
     if args.plan:
         print(json.dumps(profile_plan(args.plan, args.blocks,
                                       dtype=args.dtype, graph=args.graph)),

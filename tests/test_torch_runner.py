@@ -90,8 +90,11 @@ def assert_audio_close(a, b):
 
 
 def counts(snap):
+    """The stream counters of a snapshot (the port's also holds its
+    event counters and span summary, which the JAX package has not)."""
     return {k: (v["samples"], v["blocks"], v["dropped"])
-            for k, v in snap.items() if k != "notes"}
+            for k, v in snap.items()
+            if k not in ("notes", "counters", "spans")}
 
 
 @pytest.fixture(scope="module")
@@ -325,11 +328,41 @@ def test_set_source_swaps_the_producer():
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
+    """The webview's ``profile`` action's trace: the profiler's ops, and
+    the live loop's spans of every thread (producer, staging worker,
+    consumer) on rows of their own."""
+    import json
+
+    from cubicsdr_tpu_torch.app.runner import BLOCK_SPANS
     from cubicsdr_tpu_torch.utils.metrics import profile_trace
+    rx, ctl = build(T)
+    lr = LiveReceiver(rx, ctl, iter(synth_blocks(3)), waterfall_fft=256,
+                      on_block=lambda r: None)
     with profile_trace(str(tmp_path / "prof")) as prof:
         torch.fft.fft(torch.ones(64, dtype=torch.complex64))
+        lr.start_producer()
+        assert lr.run_blocks() == 3
+        lr.stop()
     assert any("fft" in e.key for e in prof.key_averages())
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    spans = [e for e in trace["traceEvents"]
+             if e.get("cat") == "program_span"]
+    names = {e["name"] for e in spans}
+    assert set(BLOCK_SPANS) - {"stage.slot_wait"} | {
+        "ingest.write", "ingest.ready", "compiled.build"} <= names
+    assert {e["args"]["seq"] for e in spans if e["name"] == "fanout"} \
+        == {0, 1, 2}
+    # The consumer ran on this thread: the profiler's own ranges too.
+    ops = {e["name"] for e in trace["traceEvents"]
+           if e.get("cat") == "cpu_op"}
+    assert {"step.dispatch", "post.dispatch", "pull.wait", "fanout"} <= ops
+    # On the profiler's clock: each span lies where its range lies (ts in
+    # microseconds).
+    rows = sorted(e["ts"] for e in spans if e["name"] == "fanout")
+    ranges = sorted(e["ts"] for e in trace["traceEvents"]
+                    if e.get("cat") == "cpu_op" and e["name"] == "fanout")
+    assert len(rows) == len(ranges) == 3
+    assert max(abs(a - b) for a, b in zip(rows, ranges)) < 50
 
 
 def test_stager_submit_after_shutdown_resolves():
