@@ -11,7 +11,8 @@ the bounded ring's try-push shedding, the reference's queue-full policy
 
 Per block, on the pipeline's device:
 
-    ring --(staging worker: pinned slot, own CUDA stream)--> device planes
+    ring (pinned, in frames of one block) --(staging worker: one
+         host->device copy out of the ring, own CUDA stream)--> device planes
          --> step --> packed post-step (waterfall re-block + spectrum EMA,
              levels, squelch flags, audio, demod view, zoom view)
          --> ONE device->host copy into pinned memory --> host fan-out
@@ -19,14 +20,21 @@ Per block, on the pipeline's device:
 Threads and CUDA:
 
 - the producer touches only numpy and the ring;
-- the staging worker copies each block into one of ``N_SLOTS`` persistent
-  pinned host slots and issues the host->device copy, on its own CUDA
-  stream, into the slot's persistent device buffer, recording an event;
-  a pinned slot is refilled only after its previous copy's event has
-  completed, and its device buffer is overwritten only after the
-  consumer's stream has passed the block that last read it (an event the
-  consumer records after that block's dispatch): staging allocates no
-  device memory per block;
+- on the card the ring's storage is one pinned tensor ``[frames, 2, L]``
+  from torch's pinned host allocator, in frames of one block, so a block
+  is one contiguous ``[2, L]`` span. The staging worker acquires the next
+  block in place (``SampleRing.acquire``: no host copy) and enqueues its
+  host->device copy, on its own CUDA stream, straight from the span into
+  one of ``N_SLOTS`` persistent device buffers, recording an event; the
+  span stays held (its samples fill the ring) until that event has
+  completed, and is released by a later stage, the end of ``run_blocks``
+  or ``stop``. A device buffer is overwritten only after the consumer's
+  stream has passed the block that last read it (an event the consumer
+  records after that block's dispatch): staging allocates no memory per
+  block. The loop reads only whole frames, so every block is handed
+  out in place. On the CPU the ring is plain host memory and every
+  block is read out (the step reads its inputs after staging, when a
+  held frame could be overwritten);
 - the consumer makes its stream wait on the copy's event before the
   step. It dispatches block i, then finishes block i-1, whose packed
   pull synchronises on its own event first.
@@ -78,13 +86,11 @@ once per block made ready (value: the block's place, its ring
 generation and its number there); the staging worker's ``stage`` from
 the ring holding the block (a write in progress holds the ring's lock
 before that) to the host->device copy's enqueue (value: the block's
-place), child ``stage.slot_wait`` where a pinned slot's last copy holds
-it; the consumer's ``step.dispatch``, ``post.dispatch``, ``pull.wait``
+place); the consumer's ``step.dispatch``, ``post.dispatch``, ``pull.wait``
 and ``fanout`` (child ``on_block``); in the compiled loop on the card
 ``device.step`` and ``device.post``, the device ns of the step's and the
 post-step's graphs (the zoom view's not included), read after the pull.
-The consumer counts ``starved_polls``, the staging worker
-``slot_waits``.
+The consumer counts ``starved_polls``.
 """
 
 from __future__ import annotations
@@ -109,8 +115,8 @@ from cubicsdr_tpu_torch.visual import (
     FFTDataDistributor, PlanarSpectrumProcessor, SpectrumProcessor,
     Waterfall)
 
-# Pinned staging slots: one block computing, one staged, one being
-# filled, and one spare so a refill never waits on a copy in flight.
+# Device staging slots (and pinned pull buffers): one block computing,
+# one staged, one being copied, and one spare.
 N_SLOTS = 4
 # Compiled post-steps kept (the JAX package's limit); the cache empties
 # when full.
@@ -198,13 +204,12 @@ def _copy_controls(bufs: list, snap: list) -> None:
 
 # The live loop's spans (module docstring): each thread's ring holds its
 # spans of the last SPAN_BLOCKS blocks (up to four ring writes each).
-for _thread, _per_block in (("producer", 5), ("staging", 2),
+for _thread, _per_block in (("producer", 5), ("staging", 1),
                             ("consumer", 5), ("device", 2)):
     SPANS.ring(_thread, _per_block * SPAN_BLOCKS)
 _WRITE = SPANS.name("ingest.write", "producer")
 _READY = SPANS.name("ingest.ready", "producer", "ingest.write")
 _STAGE = SPANS.name("stage", "staging")
-_SLOT_WAIT = SPANS.name("stage.slot_wait", "staging", "stage")
 _STEP = SPANS.name("step.dispatch", "consumer")
 _POST = SPANS.name("post.dispatch", "consumer")
 _PULL = SPANS.name("pull.wait", "consumer")
@@ -212,8 +217,8 @@ _FANOUT = SPANS.name("fanout", "consumer")
 _ON_BLOCK = SPANS.name("on_block", "consumer", "fanout")
 _DEV_STEP = SPANS.name("device.step", "device")
 _DEV_POST = SPANS.name("device.post", "device")
-BLOCK_SPANS = ("stage", "stage.slot_wait", "step.dispatch",
-               "post.dispatch", "pull.wait", "fanout", "on_block")
+BLOCK_SPANS = ("stage", "step.dispatch", "post.dispatch", "pull.wait",
+               "fanout", "on_block")
 _PLACE = 1 << 32            # a block's place: generation * _PLACE + number
 
 
@@ -246,13 +251,13 @@ def block_spans(log, first: int = 0, stop: Optional[int] = None) -> dict:
 class _Staged(NamedTuple):
     """One ring block on its way to the device."""
     iq: tuple          # (re, im) on the device, ring dtype
-    planes: tuple      # (re, im) host numpy copies from the ring
+    planes: tuple      # (re, im) host numpy copies from the ring, or None
     n: int             # samples
     gen: int           # ring/format generation it was read from
     ready: object      # CUDA event of its host->device copy, or None
     slot: int          # its staging slot (-1 on the CPU)
     place: int         # generation * _PLACE + its number there (from 1)
-    spans: tuple       # stage (start, end), slot wait (start, end) or ()
+    spans: tuple       # stage (start, end)
 
 
 class LiveReceiver:
@@ -362,10 +367,12 @@ class LiveReceiver:
         self._stop = threading.Event()
         self._stage_pool: Optional[_Stager] = None
         self._staged = None              # in-flight staged-block box
-        self._slots: list = []           # pinned staging slots [2, L]
-        self._dev_slots: list = []       # their device buffers
-        self._slot_events: list = []     # each slot's last copy
+        self._dev_slots: list = []       # device staging slots [2, L]
         self._slot_free: list = []       # each slot's last read, consumer
+        # Ring spans held for their copies: (ring, the copy's event),
+        # oldest first, as the rings release them.
+        self._held: collections.deque = collections.deque()
+        self._held_mu = threading.Lock()
         self._slot_next = 0
         self._pull_slots: list = [None] * N_SLOTS   # pinned pull buffers
         self._pull_events: list = [None] * N_SLOTS
@@ -384,9 +391,20 @@ class LiveReceiver:
         self.step_lock = threading.Lock()
 
     def _new_ring(self, pipeline) -> SampleRing:
-        cap = int(pipeline.sample_rate * self._ring_seconds)
-        return SampleRing(max(cap, 4 * pipeline.block_len),
-                          dtype=self.ingest_dtype)
+        """At least ``ring_seconds`` of samples and four blocks, rounded up
+        to whole blocks, in frames of one block. On the card the storage
+        is one pinned tensor ``[frames, 2, L]`` from torch's pinned host
+        allocator, which holds a dropped ring's memory until the copies
+        recorded on it are done."""
+        L = pipeline.block_len
+        cap = max(int(pipeline.sample_rate * self._ring_seconds), 4 * L)
+        cap = -(-cap // L) * L
+        storage = None
+        if self._cuda:
+            dt = torch.from_numpy(np.empty(0, self.ingest_dtype)).dtype
+            storage = torch.empty((cap // L, 2, L), dtype=dt,
+                                  pin_memory=True)
+        return SampleRing(cap, self.ingest_dtype, frame=L, storage=storage)
 
     @property
     def ring(self) -> SampleRing:
@@ -736,73 +754,84 @@ class LiveReceiver:
                 z.close()
 
     # --- consumer: ring -> step -> sinks ---
-    def _h2d(self, re: np.ndarray, im: np.ndarray):
-        """Copy ring planes through a persistent pinned slot into its
-        persistent device buffer on the staging stream; returns (device
-        [2, n], event, slot, the slot wait's (start, end) or ())."""
-        n = re.shape[0]
-        if (not self._slots or self._slots[0].shape[1] != n
-                or self._slots[0].numpy().dtype != re.dtype):
-            self._slots = [torch.from_numpy(np.empty((2, n), re.dtype))
-                           .pin_memory() for _ in range(N_SLOTS)]
-            self._dev_slots = [torch.empty_like(s, device=self.device)
-                               for s in self._slots]
-            self._slot_events = [None] * N_SLOTS
+    def _h2d(self, src: torch.Tensor):
+        """Enqueue one block's host->device copy from ``src`` (its pinned
+        ring frame, [2, n]) into a persistent device slot on the staging
+        stream; returns (device [2, n], its event, slot)."""
+        if (not self._dev_slots or self._dev_slots[0].shape != src.shape
+                or self._dev_slots[0].dtype != src.dtype):
+            self._dev_slots = [torch.empty(src.shape, dtype=src.dtype,
+                                           device=self.device)
+                               for _ in range(N_SLOTS)]
             self._slot_free = [None] * N_SLOTS
             self._slot_next = 0
         if self._h2d_stream is None:
             self._h2d_stream = torch.cuda.Stream(self.device)
         i = self._slot_next
         self._slot_next = (i + 1) % N_SLOTS
-        wait = ()
-        last = self._slot_events[i]
-        if last is not None and not last.query():
-            self.metrics.count("slot_waits")
-            t0 = now()
-            rng = open_range("stage.slot_wait")
-            last.synchronize()                   # its last copy is done
-            close_range(rng)
-            wait = (t0, now())
-        slot, dev, free = self._slots[i], self._dev_slots[i], \
-            self._slot_free[i]
-        host = slot.numpy()
-        host[0] = re
-        host[1] = im
+        dev, free = self._dev_slots[i], self._slot_free[i]
         with torch.cuda.stream(self._h2d_stream):
             if free is not None:     # the consumer's last read is done
                 self._h2d_stream.wait_event(free)
-            dev.copy_(slot, non_blocking=True)
+            dev.copy_(src, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self._h2d_stream)
-        self._slot_events[i] = ev
-        return dev, ev, i, wait
+        return dev, ev, i
+
+    def _release_spans(self, wait: bool = False):
+        """Release the held ring spans whose copies are done, oldest
+        first; ``wait``: every one, blocking on a copy in flight."""
+        with self._held_mu:
+            while self._held:
+                ring, ev = self._held[0]
+                if not ev.query():
+                    if not wait:
+                        return
+                    ev.synchronize()
+                ring.release()
+                self._held.popleft()
 
     def _stage_block(self):
-        """Read one block from the ring and start its host->device copy.
+        """Take one block from the ring and start its host->device copy.
         Runs on the staging worker, so the copy of block i+1 overlaps
-        block i's dispatch and block i-1's packed pull."""
+        block i's dispatch and block i-1's packed pull. On the card the
+        block is copied straight out of its held ring frame; its host
+        planes are copied out only for an open zoom view whose level's
+        chunk is not the block (the others are fed on the device)."""
         gen, ring, L = self._ingest
-        if ring.fill < L:      # waits out a write that holds the ring
+        self._release_spans()
+        if ring.readable < L:  # waits out a write that holds the ring
             return None
         t0 = now()
         rng = open_range("stage")
-        got = ring.read(L)
-        if got is None:
-            close_range(rng)
-            return None
-        g, k = self._read
-        k = (k if g == gen else 0) + 1
-        self._read = (gen, k)
-        re, im = got
         if self._cuda:
-            dev, ev, slot, wait = self._h2d(re, im)
+            k = ring.acquire(L)
+            if k is None:
+                close_range(rng)
+                raise RuntimeError(
+                    f"no whole frame of {L} samples at the ring's read "
+                    f"position ({ring.readable} readable)")
+            src = ring.storage[k]
+            z = self.zoom
+            planes = (tuple(src.numpy().copy())
+                      if z is not None and z.chunk != L else None)
+            dev, ev, slot = self._h2d(src)
+            with self._held_mu:
+                self._held.append((ring, ev))
             iq = (dev[0], dev[1])
         else:
-            iq, ev, slot, wait = (torch.from_numpy(re),
-                                  torch.from_numpy(im)), None, -1, ()
+            planes = ring.read(L)
+            if planes is None:
+                close_range(rng)
+                return None
+            iq = (torch.from_numpy(planes[0]), torch.from_numpy(planes[1]))
+            ev, slot = None, -1
+        g, n = self._read
+        n = (n if g == gen else 0) + 1
+        self._read = (gen, n)
         close_range(rng)
-        return _Staged(iq, (re, im), L, gen, ev, slot, gen * _PLACE + k,
-                       (t0, now()) + wait)
+        return _Staged(iq, planes, L, gen, ev, slot, gen * _PLACE + n,
+                       (t0, now()))
 
     def run_blocks(self, max_blocks: Optional[int] = None,
                    wait: bool = True) -> int:
@@ -877,10 +906,7 @@ class LiveReceiver:
                     seq = self._seq
                     self._seq = seq + 1
                     sp = self.metrics.spans
-                    sp.add(_STAGE, seq, blk.spans[0], blk.spans[1],
-                           blk.place)
-                    if len(blk.spans) > 2:
-                        sp.add(_SLOT_WAIT, seq, blk.spans[2], blk.spans[3])
+                    sp.add(_STAGE, seq, *blk.spans, blk.place)
                     sp.add(_STEP, seq, t0, t1)
                     sp.add(_POST, seq, t1, t2)
                     dispatched = (disp, iq, out, blk.planes,
@@ -895,7 +921,8 @@ class LiveReceiver:
                     # stage that raced the producer's final writes may
                     # have returned empty while blocks remain.
                     if (self._staged is not None
-                            or self.ring.fill >= self.pipeline.block_len):
+                            or self.ring.readable
+                            >= self.pipeline.block_len):
                         continue
                     break
                 self.metrics.count("starved_polls")
@@ -906,6 +933,7 @@ class LiveReceiver:
             pending = dispatched
         if pending is not None:
             self._fanout_finish(*pending)
+        self._release_spans()
         return n
 
     def set_zoom(self, offset: Optional[float], bandwidth: float = 0.0):
@@ -1554,6 +1582,7 @@ class LiveReceiver:
         if self._stage_pool is not None:
             self._stage_pool.shutdown()
             self._stage_pool = self._staged = None
+        self._release_spans(wait=True)
         for r in self._recorders.values():
             r.close()
         for s in self.audio_sinks.values():

@@ -8,18 +8,21 @@ the card).
 API:
   deinterleave(raw_bytes_or_array, fmt) -> (re, im) float32 numpy planes
   float_to_pcm16(audio) -> int16 numpy
-  SampleRing(capacity) -> bounded planar ring with try-push shedding
+  SampleRing(capacity, dtype, frame, storage) -> bounded planar ring with
+      try-push shedding, in frames; acquire/release hand a frame out in place
   backend() -> "native" or "numpy"
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -77,16 +80,21 @@ def get_lib():
                                        ctypes.c_int64, c_f32p, c_f32p]
         lib.cs_float_to_pcm16.argtypes = [c_f32p, ctypes.c_int64, c_i16p]
         lib.cs_ring_create.restype = ctypes.c_void_p
-        lib.cs_ring_create.argtypes = [ctypes.c_int64]
-        lib.cs_ring_create2.restype = ctypes.c_void_p
-        lib.cs_ring_create2.argtypes = [ctypes.c_int64, ctypes.c_int32]
+        lib.cs_ring_create.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_int32, ctypes.c_int64]
         lib.cs_ring_destroy.argtypes = [ctypes.c_void_p]
         lib.cs_ring_write.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_int64]
         lib.cs_ring_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_void_p, ctypes.c_int64]
+        lib.cs_ring_acquire.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.cs_ring_acquire.restype = ctypes.c_int64
+        lib.cs_ring_release.argtypes = [ctypes.c_void_p]
+        lib.cs_ring_release.restype = ctypes.c_int32
         lib.cs_ring_fill.argtypes = [ctypes.c_void_p]
         lib.cs_ring_fill.restype = ctypes.c_int64
+        lib.cs_ring_readable.argtypes = [ctypes.c_void_p]
+        lib.cs_ring_readable.restype = ctypes.c_int64
         lib.cs_ring_dropped.argtypes = [ctypes.c_void_p]
         lib.cs_ring_dropped.restype = ctypes.c_int64
         _lib = lib
@@ -150,22 +158,58 @@ class SampleRing:
 
     ``dtype`` sets the stored sample format: float32 (default) or a wire
     format (int16/int8) for native-format ingest — fewer bytes through
-    host memory and over the host->device link, converted on the card."""
+    host memory and over the host->device link, converted on the card.
 
-    def __init__(self, capacity: int, dtype=np.float32):
+    The storage is laid out in frames of ``frame`` samples (default: the
+    whole capacity, two planes): sample s of plane p is element
+    ``((s // frame) * 2 + p) * frame + s % frame`` of the flat storage, so
+    a frame is one contiguous ``[2, frame]`` span. ``storage``, when given,
+    is the caller's: 2 * capacity samples of ``dtype`` that ``np.asarray``
+    views in place (a numpy array, or a CPU torch tensor such as a pinned
+    ``[capacity // frame, 2, frame]`` one, which the live loop copies to
+    the card a frame at a time); the ring keeps it as ``storage``.
+
+    ``read(n)`` copies n samples out. ``acquire(n)`` hands out the next
+    block in place instead, as its frame number in the storage, when n is
+    one frame and the read position starts a frame; its samples count in
+    ``fill`` (so writes shed while held spans fill the ring) but not in
+    ``readable`` until ``release()`` frees the oldest held span."""
+
+    def __init__(self, capacity: int, dtype=np.float32,
+                 frame: Optional[int] = None, storage=None):
         self.capacity = int(capacity)
         self.dtype = np.dtype(dtype)
+        self.frame = self.capacity if frame is None else int(frame)
+        if self.frame <= 0 or self.capacity % self.frame:
+            raise ValueError(f"frame {self.frame} does not divide the "
+                             f"capacity {self.capacity}")
+        self.storage = storage
+        buf = None
+        if storage is not None:
+            buf = np.asarray(storage)
+            if (buf.dtype != self.dtype or buf.size != 2 * self.capacity
+                    or not buf.flags.c_contiguous
+                    or not buf.flags.writeable):
+                raise ValueError(
+                    f"storage must be {2 * self.capacity} writable "
+                    f"contiguous samples of {self.dtype}, got "
+                    f"{buf.size} of {buf.dtype}")
         self._lib = get_lib()
         if self._lib is not None:
-            self._h = self._lib.cs_ring_create2(self.capacity,
-                                                self.dtype.itemsize)
-        else:
-            self._re = np.zeros(capacity, self.dtype)
-            self._im = np.zeros(capacity, self.dtype)
-            self._head = 0
-            self._size = 0
-            self.dropped = 0
-            self._mu = threading.Lock()
+            self._buf = buf              # the pointer stays valid
+            self._h = self._lib.cs_ring_create(
+                None if buf is None else ctypes.c_void_p(buf.ctypes.data),
+                self.capacity, self.dtype.itemsize, self.frame)
+            return
+        if buf is None:
+            buf = np.zeros(2 * self.capacity, self.dtype)
+        self._frames = buf.reshape(-1, 2, self.frame)
+        self._tail = 0          # oldest sample not yet freed
+        self._busy = 0          # tail to the read position: held or read
+        self._size = 0          # tail to the write position (the fill)
+        self._held: collections.deque = collections.deque()
+        self.dropped = 0
+        self._mu = threading.Lock()
 
     def _vp(self, a: np.ndarray):
         # The caller must keep ``a`` alive and contiguous for the C call:
@@ -173,6 +217,18 @@ class SampleRing:
         # pointer can dangle before the callee consumes it.
         assert a.flags.c_contiguous, "pass a C-contiguous array to _vp"
         return ctypes.c_void_p(a.ctypes.data)
+
+    def _segments(self, pos: int, n: int):
+        """(frame, offset in it, offset in the block, length) of each
+        segment of n samples from ``pos``; a frame never crosses the
+        wrap."""
+        done, F = 0, self.frame
+        while done < n:
+            off = pos % F
+            seg = min(n - done, F - off)
+            yield pos // F, off, done, seg
+            done += seg
+            pos = (pos + seg) % self.capacity
 
     def write(self, re: np.ndarray, im: np.ndarray) -> bool:
         n = len(re)
@@ -185,13 +241,10 @@ class SampleRing:
             if self._size + n > self.capacity:
                 self.dropped += n
                 return False
-            w = (self._head + self._size) % self.capacity
-            first = min(n, self.capacity - w)
-            self._re[w:w + first] = re[:first]
-            self._im[w:w + first] = im[:first]
-            if n > first:
-                self._re[: n - first] = re[first:]
-                self._im[: n - first] = im[first:]
+            w = (self._tail + self._size) % self.capacity
+            for f, off, d, seg in self._segments(w, n):
+                self._frames[f, 0, off:off + seg] = re[d:d + seg]
+                self._frames[f, 1, off:off + seg] = im[d:d + seg]
             self._size += n
             return True
 
@@ -203,20 +256,68 @@ class SampleRing:
                                         self._vp(im), n)
             return (re, im) if ok else None
         with self._mu:
-            if self._size < n:
+            if self._size - self._busy < n:
                 return None
-            idx = (self._head + np.arange(n)) % self.capacity
-            re, im = self._re[idx].copy(), self._im[idx].copy()
-            self._head = (self._head + n) % self.capacity
-            self._size -= n
+            re, im = np.empty(n, self.dtype), np.empty(n, self.dtype)
+            pos = (self._tail + self._busy) % self.capacity
+            for f, off, d, seg in self._segments(pos, n):
+                re[d:d + seg] = self._frames[f, 0, off:off + seg]
+                im[d:d + seg] = self._frames[f, 1, off:off + seg]
+            if self._held:
+                self._busy += n      # freed with the held span before it
+            else:
+                self._tail = (self._tail + n) % self.capacity
+                self._size -= n
             return re, im
+
+    def acquire(self, n: int) -> Optional[int]:
+        """The frame number of the next n readable samples, held in place
+        until ``release``; None unless n is one frame, the read position
+        starts a frame and n samples are readable."""
+        if self._lib is not None:
+            k = int(self._lib.cs_ring_acquire(self._h, n))
+            return None if k < 0 else k
+        with self._mu:
+            pos = (self._tail + self._busy) % self.capacity
+            if (n != self.frame or pos % self.frame
+                    or self._size - self._busy < n):
+                return None
+            self._held.append(pos // self.frame)
+            self._busy += n
+            return pos // self.frame
+
+    def release(self) -> bool:
+        """Free the oldest held span (and reads behind it); False if none
+        is held."""
+        if self._lib is not None:
+            return bool(self._lib.cs_ring_release(self._h))
+        with self._mu:
+            if not self._held:
+                return False
+            self._held.popleft()
+            freed = (self._busy if not self._held else
+                     (self._held[0] * self.frame - self._tail)
+                     % self.capacity)
+            self._tail = (self._tail + freed) % self.capacity
+            self._busy -= freed
+            self._size -= freed
+            return True
 
     @property
     def fill(self) -> int:
+        """Samples written and not yet freed, held spans included."""
         if self._lib is not None:
             return int(self._lib.cs_ring_fill(self._h))
         with self._mu:
             return self._size
+
+    @property
+    def readable(self) -> int:
+        """Samples written and not yet read or acquired."""
+        if self._lib is not None:
+            return int(self._lib.cs_ring_readable(self._h))
+        with self._mu:
+            return self._size - self._busy
 
     @property
     def dropped_samples(self) -> int:

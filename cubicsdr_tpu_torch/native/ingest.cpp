@@ -12,8 +12,10 @@
 // Built as a shared library, bound via ctypes (cubicsdr_tpu_torch/native/
 // __init__.py). The port's copy of cubicsdr_tpu/native/ingest.cpp.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <mutex>
 #include <vector>
 
@@ -71,35 +73,81 @@ void cs_float_to_pcm16(const float* in, int64_t n, int16_t* out) {
 // the host (the reference converts everything to CF32 host-side,
 // ref: SoapySDRThread.cpp:253-343 — that spends host-to-device copy
 // bandwidth on float32 planes).
+//
+// Framed layout: the storage holds 2 * cap samples in frames of F
+// samples (F divides cap); sample s of plane p lives at element
+// ((s / F) * 2 + p) * F + s % F, so a frame-aligned block of F samples is
+// one contiguous [2, F] span. F == cap is two whole planes. The storage
+// is the ring's own, or the caller's (pinned host memory the device
+// copies a block out of in place).
+//
+// Held spans: cs_ring_acquire hands out the next frame-aligned block
+// without copying it and keeps its samples in the fill until
+// cs_ring_release frees it, oldest first. A read behind held spans is
+// freed with the span after it.
 
 struct Ring {
-    std::vector<uint8_t> re, im;
-    int64_t cap = 0;    // in samples
-    int64_t head = 0;   // read position (samples)
-    int64_t size = 0;   // valid samples
+    std::vector<uint8_t> own;   // the storage, unless the caller's
+    uint8_t* buf = nullptr;     // 2 * cap samples, framed
+    int64_t cap = 0;            // in samples
+    int64_t frame = 0;          // F, samples per frame
+    int64_t tail = 0;           // oldest sample not yet freed
+    int64_t busy = 0;           // tail to the read position: held or read
+    int64_t size = 0;           // tail to the write position (the fill)
     int64_t dropped = 0;
-    int32_t elem = 4;   // bytes per sample per plane
+    int32_t elem = 4;           // bytes per sample per plane
+    std::deque<int64_t> held;   // each held span's frame, oldest first
     std::mutex mu;
 };
 
-void* cs_ring_create2(int64_t capacity, int32_t elem_size) {
+// A ring over ``storage`` (2 * capacity samples, which the caller keeps
+// alive), or over storage of its own where that is null; null if the
+// frame does not divide the capacity.
+void* cs_ring_create(void* storage, int64_t capacity, int32_t elem_size,
+                     int64_t frame) {
+    if (capacity <= 0 || elem_size <= 0 || frame <= 0
+        || capacity % frame != 0)
+        return nullptr;
     Ring* r = new Ring();
     r->cap = capacity;
     r->elem = elem_size;
-    r->re.resize(capacity * elem_size);
-    r->im.resize(capacity * elem_size);
+    r->frame = frame;
+    if (storage == nullptr) {
+        r->own.resize(2 * capacity * elem_size);
+        storage = r->own.data();
+    }
+    r->buf = (uint8_t*)storage;
     return r;
-}
-
-void* cs_ring_create(int64_t capacity) {
-    return cs_ring_create2(capacity, 4);
 }
 
 void cs_ring_destroy(void* h) { delete (Ring*)h; }
 
+// Copy n samples between the ring at sample pos and two flat planes, one
+// segment per frame (a frame never crosses the wrap).
+static void ring_copy(Ring* r, int64_t pos, int64_t n, uint8_t* re,
+                      uint8_t* im, bool into_ring) {
+    const int64_t e = r->elem, F = r->frame;
+    for (int64_t done = 0; done < n;) {
+        const int64_t off = pos % F;
+        const int64_t seg = std::min(n - done, F - off);
+        uint8_t* p0 = r->buf + ((pos / F) * 2 * F + off) * e;
+        uint8_t* p1 = p0 + F * e;
+        if (into_ring) {
+            std::memcpy(p0, re + done * e, seg * e);
+            std::memcpy(p1, im + done * e, seg * e);
+        } else {
+            std::memcpy(re + done * e, p0, seg * e);
+            std::memcpy(im + done * e, p1, seg * e);
+        }
+        done += seg;
+        pos = (pos + seg) % r->cap;
+    }
+}
+
 // try_push semantics: if there is not enough room, the whole batch is
 // dropped and counted (back-pressure shedding; the reference drops the
 // batch when its queue is full rather than blocking the device thread).
+// Held spans take room until they are released.
 int32_t cs_ring_write(void* h, const void* re, const void* im,
                       int64_t n) {
     Ring* r = (Ring*)h;
@@ -108,17 +156,8 @@ int32_t cs_ring_write(void* h, const void* re, const void* im,
         r->dropped += n;
         return 0;
     }
-    const int64_t e = r->elem;
-    int64_t w = (r->head + r->size) % r->cap;
-    int64_t first = std::min(n, r->cap - w);
-    std::memcpy(&r->re[w * e], re, first * e);
-    std::memcpy(&r->im[w * e], im, first * e);
-    if (n > first) {
-        std::memcpy(&r->re[0], (const uint8_t*)re + first * e,
-                    (n - first) * e);
-        std::memcpy(&r->im[0], (const uint8_t*)im + first * e,
-                    (n - first) * e);
-    }
+    ring_copy(r, (r->tail + r->size) % r->cap, n, (uint8_t*)re,
+              (uint8_t*)im, true);
     r->size += n;
     return 1;
 }
@@ -128,17 +167,44 @@ int32_t cs_ring_write(void* h, const void* re, const void* im,
 int32_t cs_ring_read(void* h, void* re, void* im, int64_t n) {
     Ring* r = (Ring*)h;
     std::lock_guard<std::mutex> lock(r->mu);
-    if (r->size < n) return 0;
-    const int64_t e = r->elem;
-    int64_t first = std::min(n, r->cap - r->head);
-    std::memcpy(re, &r->re[r->head * e], first * e);
-    std::memcpy(im, &r->im[r->head * e], first * e);
-    if (n > first) {
-        std::memcpy((uint8_t*)re + first * e, &r->re[0], (n - first) * e);
-        std::memcpy((uint8_t*)im + first * e, &r->im[0], (n - first) * e);
+    if (r->size - r->busy < n) return 0;
+    ring_copy(r, (r->tail + r->busy) % r->cap, n, (uint8_t*)re,
+              (uint8_t*)im, false);
+    if (r->held.empty()) {
+        r->tail = (r->tail + n) % r->cap;
+        r->size -= n;
+    } else {
+        r->busy += n;           // freed with the held span before it
     }
-    r->head = (r->head + n) % r->cap;
-    r->size -= n;
+    return 1;
+}
+
+// The frame holding the next n readable samples, held until released;
+// -1 unless n is one frame, the read position starts a frame and n
+// samples are readable. Copies nothing.
+int64_t cs_ring_acquire(void* h, int64_t n) {
+    Ring* r = (Ring*)h;
+    std::lock_guard<std::mutex> lock(r->mu);
+    const int64_t pos = (r->tail + r->busy) % r->cap;
+    if (n != r->frame || pos % r->frame != 0 || r->size - r->busy < n)
+        return -1;
+    r->held.push_back(pos / r->frame);
+    r->busy += n;
+    return pos / r->frame;
+}
+
+// Free the oldest held span (and reads behind it); 0 if none is held.
+int32_t cs_ring_release(void* h) {
+    Ring* r = (Ring*)h;
+    std::lock_guard<std::mutex> lock(r->mu);
+    if (r->held.empty()) return 0;
+    r->held.pop_front();
+    const int64_t freed = r->held.empty()
+        ? r->busy
+        : (r->held.front() * r->frame - r->tail + r->cap) % r->cap;
+    r->tail = (r->tail + freed) % r->cap;
+    r->busy -= freed;
+    r->size -= freed;
     return 1;
 }
 
@@ -146,6 +212,12 @@ int64_t cs_ring_fill(void* h) {
     Ring* r = (Ring*)h;
     std::lock_guard<std::mutex> lock(r->mu);
     return r->size;
+}
+
+int64_t cs_ring_readable(void* h) {
+    Ring* r = (Ring*)h;
+    std::lock_guard<std::mutex> lock(r->mu);
+    return r->size - r->busy;
 }
 
 int64_t cs_ring_dropped(void* h) {

@@ -768,7 +768,7 @@ def churn_soak(args) -> dict:
                 gaps["zoom_build_max"] = max(gaps["zoom_build_max"], g)
         gaps["last"] = now
         gaps["backlog_max"] = max(gaps["backlog_max"],
-                                  lr.ring.fill / rate)
+                                  lr.ring.readable / rate)
 
     lr = LiveReceiver(rx, controls_from_manager(mgr, rx, keyed, CENTER), src,
                       center_freq=CENTER, waterfall_fft=1024,

@@ -348,7 +348,7 @@ def test_profile_trace_writes_a_trace(tmp_path):
     spans = [e for e in trace["traceEvents"]
              if e.get("cat") == "program_span"]
     names = {e["name"] for e in spans}
-    assert set(BLOCK_SPANS) - {"stage.slot_wait"} | {
+    assert set(BLOCK_SPANS) | {
         "ingest.write", "ingest.ready", "compiled.build"} <= names
     assert {e["args"]["seq"] for e in spans if e["name"] == "fanout"} \
         == {0, 1, 2}

@@ -72,10 +72,11 @@ def test_each_block_has_its_spans_in_chain_order():
     np.testing.assert_array_equal(w["value"], np.full(N, L))
     np.testing.assert_array_equal(b["ready"], w["end"])
     assert (on_a > b["ready"]).all()
-    # No device on the CPU: no device times; no staging slot to wait on.
+    # No device on the CPU: no device times; each block is read out of
+    # the ring, and no ring span is held for a copy.
     assert np.isnan(b["device.step"]).all()
     assert np.isnan(b["device.post"]).all()
-    assert (b["stage.slot_wait"][0] == 0).all()
+    assert "stage.slot_wait" not in b
     snap = lr.metrics.snapshot()
     for name in CHAIN + ("on_block", "ingest.write", "ingest.ready"):
         assert snap["spans"][name]["count"] == N, name
@@ -106,7 +107,6 @@ def test_the_store_keeps_its_capacity_and_drops_the_oldest():
             log.add(R._WRITE, -1, t + w, t + w + 1, 5)
         log.add(R._READY, -1, t + 3, t + 4, k + 1)
         log.add(R._STAGE, k, t + 5, t + 7, k + 1)
-        log.add(R._SLOT_WAIT, k, t + 5, t + 6)
         for i, name in enumerate((R._STEP, R._POST, R._PULL, R._FANOUT)):
             log.add(name, k, t + 7 + i, t + 8 + i)
         log.add(R._ON_BLOCK, k, t + 10, t + 11)
