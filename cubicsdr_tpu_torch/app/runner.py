@@ -89,8 +89,16 @@ before that) to the host->device copy's enqueue (value: the block's
 place); the consumer's ``step.dispatch``, ``post.dispatch``, ``pull.wait``
 and ``fanout`` (child ``on_block``); in the compiled loop on the card
 ``device.step`` and ``device.post``, the device ns of the step's and the
-post-step's graphs (the zoom view's not included), read after the pull.
-The consumer counts ``starved_polls``.
+post-step's graphs (the zoom view's not included), read after the pull,
+and the step's layers, children of ``device.step``, one per
+``device_mark`` of the pipeline (``DEVICE_LAYERS``): ``device.chan``
+(wire conversion, channelizer, DC blocker), ``device.route`` (every
+group's route, NCO and resampler stages) and ``device.kits`` (modem
+kits, squelch gates, mix). The consumer counts ``starved_polls``;
+``metrics`` also holds the plan's ``pfb.form`` (the PFB kernel's
+transform, an index of ``PFB_FORMS``; absent where no PFB kernel runs)
+and ``fanout.demods`` (the demods each block fans out), both set at
+each plan.
 """
 
 from __future__ import annotations
@@ -106,6 +114,7 @@ import torch
 
 from cubicsdr_tpu_torch.io.recorder import RecordingSink, SquelchOption
 from cubicsdr_tpu_torch.native import SampleRing
+from cubicsdr_tpu_torch.ops.kernels.pfb import PFB_FORMS
 from cubicsdr_tpu_torch.ops.planar import PC, PLANAR, as_pc, to_complex
 from cubicsdr_tpu_torch.utils.compiled import CompiledStep
 from cubicsdr_tpu_torch.utils.metrics import (
@@ -205,7 +214,7 @@ def _copy_controls(bufs: list, snap: list) -> None:
 # The live loop's spans (module docstring): each thread's ring holds its
 # spans of the last SPAN_BLOCKS blocks (up to four ring writes each).
 for _thread, _per_block in (("producer", 5), ("staging", 1),
-                            ("consumer", 5), ("device", 2)):
+                            ("consumer", 5), ("device", 5)):
     SPANS.ring(_thread, _per_block * SPAN_BLOCKS)
 _WRITE = SPANS.name("ingest.write", "producer")
 _READY = SPANS.name("ingest.ready", "producer", "ingest.write")
@@ -217,6 +226,13 @@ _FANOUT = SPANS.name("fanout", "consumer")
 _ON_BLOCK = SPANS.name("on_block", "consumer", "fanout")
 _DEV_STEP = SPANS.name("device.step", "device")
 _DEV_POST = SPANS.name("device.post", "device")
+# The pipeline's ``device_mark`` names and the spans they end.
+_LAYER_MARKS = {"chan": "device.chan", "route": "device.route",
+                "kits": "device.kits"}
+DEVICE_LAYERS = tuple(_LAYER_MARKS.values())
+_DEV_LAYER = {m: SPANS.name(n, "device", "device.step")
+              for m, n in _LAYER_MARKS.items()}
+DEVICE_SPANS = ("device.step", "device.post") + DEVICE_LAYERS
 BLOCK_SPANS = ("stage", "step.dispatch", "post.dispatch", "pull.wait",
                "fanout", "on_block")
 _PLACE = 1 << 32            # a block's place: generation * _PLACE + number
@@ -226,15 +242,14 @@ def block_spans(log, first: int = 0, stop: Optional[int] = None) -> dict:
     """The blocks numbered ``first`` to ``stop`` - 1 that ``log`` (a
     ``LiveReceiver``'s ``metrics.spans``) still holds, by number:
     ``seq``; per span of ``BLOCK_SPANS`` (start, end) ns arrays (0:
-    none); ``device.step`` and ``device.post`` ms (nan: none);
+    none); per span of ``DEVICE_SPANS`` its device ms (nan: none);
     ``ready``, the end of the ring write holding the block's last sample
     in ns (0: no longer held)."""
-    b = log.by_seq(BLOCK_SPANS + ("device.step", "device.post"), first,
-                   stop)
+    b = log.by_seq(BLOCK_SPANS + DEVICE_SPANS, first, stop)
     out = {"seq": b["seq"]}
     for name in BLOCK_SPANS:
         out[name] = b[name][:2]
-    for name in ("device.step", "device.post"):
+    for name in DEVICE_SPANS:
         a, e, _ = b[name]
         out[name] = np.where(e > 0, (e - a) / 1e6, np.nan)
     r = log.rows(("ingest.ready",))
@@ -302,6 +317,7 @@ class LiveReceiver:
         self.ingest_scale = float(ingest_scale)
         self._install_step(pipeline, controls, None)
         self.metrics = Metrics()
+        self._count_plan()
         self._ring_seconds = float(ring_seconds)
         # (generation, ring, block_len), replaced as one object by a format
         # swap: the staging worker reads all three at once, and a staged
@@ -572,7 +588,8 @@ class LiveReceiver:
             blk = np.zeros(pipeline.block_len, self.ingest_dtype)
             ctl = [{k: np.array(v) for k, v in c.items()}
                    for c in controls]
-            entry = CompiledStep(self._step_fn(pipeline), self.device)
+            entry = CompiledStep(self._step_fn(pipeline), self.device,
+                                 marks=True)
             entry.prepare(state, ((blk, blk), ctl))
             self._step_cache[pipeline] = entry
             self.step_builds += 1
@@ -580,6 +597,17 @@ class LiveReceiver:
             entry.load_state(state)
         self.step = entry
         self.state = entry.state
+
+    def _count_plan(self) -> None:
+        """The current plan's counters ``pfb.form`` and
+        ``fanout.demods``."""
+        self.metrics.set("fanout.demods",
+                         sum(g.count for g in self.pipeline.groups))
+        form = self.pipeline.pfb_form
+        if form is None:
+            self.metrics.counters.pop("pfb.form", None)
+        else:
+            self.metrics.set("pfb.form", PFB_FORMS.index(form))
 
     def _device_controls(self):
         """(host snapshot, the same controls as tensors on the device).
@@ -664,6 +692,7 @@ class LiveReceiver:
             self._install_step(pipeline, controls, state)
             self.pipeline = pipeline
             self.controls = controls
+            self._count_plan()
             if row_keys is not None:
                 self.row_keys = list(row_keys)
             planar = pipeline.dtype == PLANAR
@@ -1554,6 +1583,8 @@ class LiveReceiver:
                 step, k, post, j = timed
                 sp.add(_DEV_STEP, seq, 0, round(step.device_ms(k) * 1e6))
                 sp.add(_DEV_POST, seq, 0, round(post.device_ms(j) * 1e6))
+                for mark, ms in step.mark_ms(k).items():
+                    sp.add(_DEV_LAYER[mark], seq, 0, round(ms * 1e6))
 
     def cache_stats(self) -> dict:
         """The compiled-step caches: steps and post-steps built, post-steps

@@ -58,6 +58,9 @@ def pfbch2_planar_plain(z_re, z_im, h_poly, w_re, w_im, c_re, c_im, parity):
 # two per SM).
 FAST_J, MAX_FFT_M, MAX_DFT_M, SMEM_MAX = 8, 64, 16, 232448
 _SMEM_TWO_PER_SM = 115200
+# The kernel's transform forms, in the order of the live loop's
+# ``pfb.form`` counter.
+PFB_FORMS = ("fft", "dft", "product")
 
 
 def pfb_form(M: int, J: int = FAST_J) -> str:

@@ -36,6 +36,7 @@ from cubicsdr_tpu_torch.modems import make_modem
 from cubicsdr_tpu_torch.ops.channelizer import (
     ChannelizerPFB, ChannelizerPFB2, channel_centers)
 from cubicsdr_tpu_torch.ops.iir import DCBlocker
+from cubicsdr_tpu_torch.ops.kernels.pfb import pfb_form
 from cubicsdr_tpu_torch.ops.planar import PC, PLANAR
 from cubicsdr_tpu_torch.ops.resample import design_ratio
 from cubicsdr_tpu_torch.receiver.frontend import (
@@ -43,6 +44,7 @@ from cubicsdr_tpu_torch.receiver.frontend import (
 from cubicsdr_tpu_torch.receiver.mixer import mix_audio
 from cubicsdr_tpu_torch.receiver.squelch import SquelchGate
 from cubicsdr_tpu_torch.stream.op import StreamOp
+from cubicsdr_tpu_torch.utils.compiled import device_mark
 from cubicsdr_tpu_torch.utils.tree import tree_map
 
 
@@ -176,6 +178,17 @@ class ReceiverPipeline(StreamOp):
 
     # --- static shape bookkeeping ---
     @property
+    def pfb_form(self) -> str | None:
+        """The PFBCH2 kernel's transform form for this plan (``pfb_form``
+        of ``ops/kernels/pfb.py``), where the step runs that kernel on
+        the card; None where it runs none (another channel mode, the
+        plain path or complex64)."""
+        ch = self.channelizer
+        if not isinstance(ch, ChannelizerPFB2) or not ch.use_kernels:
+            return None
+        return pfb_form(ch.M, ch.J)
+
+    @property
     def decim(self) -> int:
         """Input samples per channel sample (M, M/2 or 1)."""
         return self._decim
@@ -296,15 +309,16 @@ class ReceiverPipeline(StreamOp):
             st_chan = ()
             st_dc, dcq = self.dc.apply(state["dc"], iq)
             chans = PC(dcq.re[None], dcq.im[None]) if planar else dcq[None]
+        device_mark("chan")
 
-        group_states, group_outs = [], []
-        audio_all, peaks_all, gains_all, active_all = [], [], [], []
-        for gi, (fe, kit, gate) in enumerate(
-                zip(self.frontends, self.kits, self.gates)):
-            s_fe, s_kit, s_gate = state["groups"][gi]
-            ctl = controls[gi]
-            freqs = torch.as_tensor(ctl["frequency"], dtype=torch.float32,
-                                    device=dev)
+        # Every group's route, NCO and resampler stages, then every
+        # group's kit, gate and the mix: each layer is one part of the
+        # compiled step's device time (``device_mark``).
+        routed = []
+        for gi, fe in enumerate(self.frontends):
+            s_fe = state["groups"][gi][0]
+            freqs = torch.as_tensor(controls[gi]["frequency"],
+                                    dtype=torch.float32, device=dev)
             # Route each demod to its nearest channel (first on ties, as
             # jnp.argmin; ref: SDRPostThread::getChannelAt,
             # src/sdr/SDRPostThread.cpp:128-139).
@@ -318,6 +332,15 @@ class ReceiverPipeline(StreamOp):
                 x = (PC(chans.re[chan_idx], chans.im[chan_idx]) if planar
                      else chans[chan_idx])                   # [N, Lc]
                 s_fe, y = fe.apply(s_fe, (x, omega))
+            routed.append((s_fe, y))
+        device_mark("route")
+
+        group_states, group_outs = [], []
+        audio_all, peaks_all, gains_all, active_all = [], [], [], []
+        for gi, (kit, gate) in enumerate(zip(self.kits, self.gates)):
+            _, s_kit, s_gate = state["groups"][gi]
+            s_fe, y = routed[gi]
+            ctl = controls[gi]
             s_kit, ko = kit.apply(s_kit, y)
             if self.is_digital[gi]:
                 # Symbol modem: no audio; the meter reads the channel IQ
@@ -354,6 +377,7 @@ class ReceiverPipeline(StreamOp):
             mix = torch.zeros((2, self.audio_len), dtype=torch.float32,
                               device=dev)
             mix_peak = torch.zeros((), dtype=torch.float32, device=dev)
+        device_mark("kits")
 
         new_state = {"chan": st_chan, "dc": st_dc,
                      "groups": tuple(group_states)}

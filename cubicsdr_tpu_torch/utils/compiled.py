@@ -68,7 +68,13 @@ or ``compiled.capture`` per part; each part ends synchronised. On the
 card each graph records a pair of timing events at its start and its
 end (event nodes inside the graph, so a replay costs the host nothing
 more): ``device_ms(k)`` reads slot k's last replay, and ``last`` is the
-slot of the last call.
+slot of the last call. The step may mark points of its own work with
+``device_mark(name)``: inside the capture of a step built with
+``marks=True`` each mark is one more timing event of the graph, and
+``mark_ms(k)`` gives, per mark, the device ms from the mark before it
+(or the graph's start) to it. Elsewhere (a step built without marks,
+the warm-ups, an eager step, the CPU) a mark does nothing, so a graph
+of several steps (``bench.GraphedScan``) holds none.
 """
 
 from __future__ import annotations
@@ -84,6 +90,19 @@ from cubicsdr_tpu_torch.utils.metrics import SPANS, close_range, now, \
 from cubicsdr_tpu_torch.utils.tree import tree_leaves, tree_map
 
 WARMUPS = 2             # eager calls before the captures (bench.py's)
+_MARKS = threading.local()       # .events: the capture's marks, or None
+
+
+def device_mark(name: str) -> None:
+    """Inside the capture, on this thread, of a ``CompiledStep`` built
+    with ``marks=True``, a timing event at this point of the graph,
+    ending the part of the step named ``name`` (module docstring);
+    elsewhere nothing."""
+    marks = getattr(_MARKS, "events", None)
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        marks.append((name, ev))
 
 
 class _BuildGate:
@@ -205,14 +224,16 @@ class CompiledStep:
     wall ms of the build (CUDA: warm-ups and captures; CPU: the first
     call) and ``build_split_ms`` its parts (each warm-up, each capture,
     synchronised), both read from its spans; ``last`` the slot of the
-    last call."""
+    last call; ``marks`` whether its captures record ``fn``'s
+    ``device_mark``s."""
 
-    def __init__(self, fn, device, slots: int = 2):
+    def __init__(self, fn, device, slots: int = 2, marks: bool = False):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.fn = fn
         self.device = torch.device(device)
         self.slots = int(slots)
+        self.marks = bool(marks)
         self.state = None
         self.inputs = None
         self.outputs = [None] * self.slots
@@ -298,8 +319,26 @@ class CompiledStep:
         CPU."""
         if self._timing is None:
             return None
-        start, end = self._timing[k]
+        start, end, _ = self._timing[k]
         return start.elapsed_time(end)
+
+    def mark_ms(self, k: int) -> dict:
+        """(CUDA) Per ``device_mark`` of slot k's graph, in its order,
+        the device ms of its last replay from the mark before (or the
+        graph's start) to this mark; call it once the replay is done.
+        Empty on the CPU and for a step without marks. Raises where a
+        name marks more than one point of the graph."""
+        if self._timing is None:
+            return {}
+        prev, _, marks = self._timing[k]
+        out = {}
+        for name, ev in marks:
+            if name in out:
+                raise ValueError(f"the step's graph marks {name!r} more "
+                                 f"than once")
+            out[name] = prev.elapsed_time(ev)
+            prev = ev
+        return out
 
     def _keep(self, k: int, out):
         """(CPU) ``out`` copied into slot k's output buffers."""
@@ -356,9 +395,14 @@ class CompiledStep:
             ev = tuple(torch.cuda.Event(enable_timing=True, external=True)
                        for _ in range(2))
             before = _captured_counts()
+            marks = []
             with torch.cuda.graph(g, capture_error_mode="thread_local"):
                 ev[0].record()
-                new_state, out = self.fn(self.state, self.inputs)
+                _MARKS.events = marks if self.marks else None
+                try:
+                    new_state, out = self.fn(self.state, self.inputs)
+                finally:
+                    _MARKS.events = None
                 _leaves(out, "output")
                 out = tree_map(
                     lambda t: t.clone() if _ptr(t) in owned else t, out)
@@ -366,7 +410,7 @@ class CompiledStep:
                 ev[1].record()
             lap("captures", t0, rng)
             after = _captured_counts()
-            timing.append(ev)
+            timing.append((*ev, tuple(marks)))
             graphs.append(g)
             outs.append(out)
             counts.append({n: after[n] - before[n] for n in after})

@@ -285,6 +285,11 @@ class Metrics:
         """Add ``n`` to the event counter ``name``."""
         self.counters[name] += n
 
+    def set(self, name: str, value: int):
+        """Set the counter ``name`` to ``value``: a level (a plan's
+        setting, the last block's size) rather than a count."""
+        self.counters[name] = value
+
     def note(self, key: str, value):
         """Latest-value observability (device counters, last errors)."""
         self.notes[key] = value

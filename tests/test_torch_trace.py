@@ -84,6 +84,108 @@ def test_each_block_has_its_spans_in_chain_order():
     assert "slot_waits" not in snap.get("counters", {})
 
 
+def test_the_step_layers_have_no_device_spans_on_the_cpu():
+    """The step's layers are timed by events inside its graph on the
+    card; on the CPU no layer span is recorded and ``block_spans``
+    carries each as NaN, and the step's marks read nothing."""
+    lr, _ = run_loop(iter(synth_blocks(N)), N)
+    b = block_spans(lr.metrics.spans)
+    assert R.DEVICE_LAYERS == ("device.chan", "device.route",
+                               "device.kits")
+    for name in R.DEVICE_LAYERS:
+        assert b[name].shape == (N,) and np.isnan(b[name]).all(), name
+        assert name not in lr.metrics.snapshot()["spans"]
+        assert M.SPANS.parent(name) == "device.step"
+    step = lr._step_cache[lr.pipeline]
+    assert step.marks
+    assert step.mark_ms(0) == {} and step.mark_ms(1) == {}
+
+
+def test_the_pipeline_marks_each_layer_the_runner_names(monkeypatch):
+    """One step marks the runner's layers once each, in their order."""
+    from cubicsdr_tpu_torch.ops.planar import PC
+    from cubicsdr_tpu_torch.receiver import pipeline as P
+    got = []
+    monkeypatch.setattr(P, "device_mark", got.append)
+    rx, ctl = build(T)
+    z = torch.zeros(L)
+    rx.apply(rx.init_state(), (PC(z, z), ctl))
+    assert got == list(R._LAYER_MARKS)
+    assert [R._LAYER_MARKS[m] for m in got] == list(R.DEVICE_LAYERS)
+
+
+def test_block_spans_reads_the_step_layers():
+    log = M.SPANS.log()
+    for seq in range(3):
+        log.add(R._DEV_STEP, seq, 0, 1_000_000)
+        for i, span in enumerate(R._DEV_LAYER.values(), 1):
+            if (seq, i) != (2, 3):
+                log.add(span, seq, 0, 100_000 * i)
+    b = block_spans(log)
+    np.testing.assert_array_equal(b["device.step"], [1.0, 1.0, 1.0])
+    np.testing.assert_array_equal(b["device.chan"], [0.1, 0.1, 0.1])
+    np.testing.assert_array_equal(b["device.route"], [0.2, 0.2, 0.2])
+    np.testing.assert_array_equal(b["device.kits"][:2], [0.3, 0.3])
+    assert np.isnan(b["device.kits"][2])
+    assert log.summary()["device.kits"] == {"count": 2,
+                                            "median_ms": 0.3}
+
+
+def test_a_device_mark_outside_a_capture_does_nothing():
+    """A step that marks its layers runs as before where nothing is
+    captured (the CPU, the warm-ups, the eager loop)."""
+    from cubicsdr_tpu_torch.utils.compiled import device_mark
+
+    def fn(state, x):
+        device_mark("chan")
+        y = state + x
+        device_mark("kits")
+        return y, y * 2
+    assert not CompiledStep(fn, "cpu").marks
+    step = CompiledStep(fn, "cpu", marks=True)
+    for k in range(3):
+        st, out = step(torch.zeros(4) if k == 0 else step.state,
+                       torch.ones(4))
+    np.testing.assert_array_equal(out.numpy(), np.full(4, 6.0))
+    assert step.mark_ms(0) == {}
+
+
+@pytest.mark.parametrize("channels,kernels,form", [
+    (None, False, None), (2, True, 0), (6, True, 1), (20, True, 2)])
+def test_the_plan_s_pfb_form_and_the_demods_fanned_out(channels, kernels,
+                                                       form):
+    """``pfb.form`` is the index of the plan's PFB kernel form in
+    ``PFB_FORMS`` (absent where no PFB kernel runs), set at each plan;
+    ``fanout.demods`` the demods of the last block fanned out."""
+    from cubicsdr_tpu_torch.ops.kernels.pfb import PFB_FORMS
+    from cubicsdr_tpu_torch.receiver import (
+        DemodGroupSpec, ReceiverPipeline)
+    assert PFB_FORMS == ("fft", "dft", "product")
+    base, ctl = build(T)
+    lr = LiveReceiver(base, ctl, iter(synth_blocks(2)), waterfall_fft=256)
+    assert "pfb.form" not in lr.metrics.counters
+    freqs = np.asarray([-100e3, 0.0, 200e3], np.float32)
+    rx = ReceiverPipeline(1e6, [DemodGroupSpec("FM", 200000, 3)],
+                          num_channels=channels, use_kernels=kernels,
+                          block_len=base.block_len if channels is None
+                          else None, device="cpu")
+    c = rx.control_template()
+    c[0]["frequency"] = freqs
+    lr.swap_pipeline(rx, c)
+    counters = lr.metrics.snapshot().get("counters", {})
+    if form is None:
+        assert rx.pfb_form is None and "pfb.form" not in counters
+    else:
+        assert PFB_FORMS[counters["pfb.form"]] == rx.pfb_form
+        assert counters["pfb.form"] == form
+    L = rx.block_len
+    lr.set_source(iter([(0.01 * np.ones((2, L), np.float32))] * 2))
+    lr.start_producer()
+    assert lr.run_blocks(max_blocks=2) == 2
+    lr.stop()
+    assert lr.metrics.snapshot()["counters"]["fanout.demods"] == 3
+
+
 def test_starved_polls_count_the_consumer_waits():
     def slow():
         for b in synth_blocks(3):
