@@ -9,7 +9,8 @@ API:
   deinterleave(raw_bytes_or_array, fmt) -> (re, im) float32 numpy planes
   float_to_pcm16(audio) -> int16 numpy
   SampleRing(capacity, dtype, frame, storage) -> bounded planar ring with
-      try-push shedding, in frames; acquire/release hand a frame out in place
+      try-push shedding, in frames; acquire/release hand a frame out in
+      place; wait_readable sleeps until a write makes a block readable
   backend() -> "native" or "numpy"
 """
 
@@ -87,6 +88,11 @@ def get_lib():
                                       ctypes.c_void_p, ctypes.c_int64]
         lib.cs_ring_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_void_p, ctypes.c_int64]
+        lib.cs_ring_wait.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64]
+        lib.cs_ring_wait.restype = ctypes.c_int32
+        lib.cs_ring_wake.argtypes = [ctypes.c_void_p]
+        lib.cs_ring_wake.restype = None
         lib.cs_ring_acquire.argtypes = [ctypes.c_void_p, ctypes.c_int64]
         lib.cs_ring_acquire.restype = ctypes.c_int64
         lib.cs_ring_release.argtypes = [ctypes.c_void_p]
@@ -173,7 +179,11 @@ class SampleRing:
     block in place instead, as its frame number in the storage, when n is
     one frame and the read position starts a frame; its samples count in
     ``fill`` (so writes shed while held spans fill the ring) but not in
-    ``readable`` until ``release()`` frees the oldest held span."""
+    ``readable`` until ``release()`` frees the oldest held span.
+
+    ``wait_readable(n, timeout)`` sleeps until n samples are readable, an
+    accepted write waking it; ``wake()`` releases every such wait early.
+    The native wait runs with the interpreter lock released."""
 
     def __init__(self, capacity: int, dtype=np.float32,
                  frame: Optional[int] = None, storage=None):
@@ -210,6 +220,8 @@ class SampleRing:
         self._held: collections.deque = collections.deque()
         self.dropped = 0
         self._mu = threading.Lock()
+        self._cv = threading.Condition(self._mu)
+        self._wakes = 0
 
     def _vp(self, a: np.ndarray):
         # The caller must keep ``a`` alive and contiguous for the C call:
@@ -246,6 +258,7 @@ class SampleRing:
                 self._frames[f, 0, off:off + seg] = re[d:d + seg]
                 self._frames[f, 1, off:off + seg] = im[d:d + seg]
             self._size += n
+            self._cv.notify_all()
             return True
 
     def read(self, n: int):
@@ -269,6 +282,27 @@ class SampleRing:
                 self._tail = (self._tail + n) % self.capacity
                 self._size -= n
             return re, im
+
+    def wait_readable(self, n: int, timeout: float) -> bool:
+        """Sleep until n samples are readable, ``timeout`` seconds pass or
+        ``wake()`` is called; whether n samples are readable then."""
+        if self._lib is not None:
+            return bool(self._lib.cs_ring_wait(self._h, n,
+                                               int(timeout * 1e6)))
+        with self._cv:
+            wakes = self._wakes
+            self._cv.wait_for(lambda: self._size - self._busy >= n
+                              or self._wakes != wakes, max(timeout, 0.0))
+            return self._size - self._busy >= n
+
+    def wake(self) -> None:
+        """Release every ``wait_readable`` in progress."""
+        if self._lib is not None:
+            self._lib.cs_ring_wake(self._h)
+            return
+        with self._cv:
+            self._wakes += 1
+            self._cv.notify_all()
 
     def acquire(self, n: int) -> Optional[int]:
         """The frame number of the next n readable samples, held in place

@@ -13,6 +13,8 @@
 // __init__.py). The port's copy of cubicsdr_tpu/native/ingest.cpp.
 
 #include <algorithm>
+#include <chrono>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
 #include <deque>
@@ -85,6 +87,10 @@ void cs_float_to_pcm16(const float* in, int64_t n, int16_t* out) {
 // without copying it and keeps its samples in the fill until
 // cs_ring_release frees it, oldest first. A read behind held spans is
 // freed with the span after it.
+//
+// Waits: cs_ring_wait sleeps until n samples are readable; an accepted
+// write notifies, and cs_ring_wake releases every waiter early (a reader
+// being stopped or retired).
 
 struct Ring {
     std::vector<uint8_t> own;   // the storage, unless the caller's
@@ -96,8 +102,10 @@ struct Ring {
     int64_t size = 0;           // tail to the write position (the fill)
     int64_t dropped = 0;
     int32_t elem = 4;           // bytes per sample per plane
+    int64_t wakes = 0;          // cs_ring_wake calls
     std::deque<int64_t> held;   // each held span's frame, oldest first
     std::mutex mu;
+    std::condition_variable readable;   // a write was accepted, or a wake
 };
 
 // A ring over ``storage`` (2 * capacity samples, which the caller keeps
@@ -147,23 +155,27 @@ static void ring_copy(Ring* r, int64_t pos, int64_t n, uint8_t* re,
 // try_push semantics: if there is not enough room, the whole batch is
 // dropped and counted (back-pressure shedding; the reference drops the
 // batch when its queue is full rather than blocking the device thread).
-// Held spans take room until they are released.
+// Held spans take room until they are released. An accepted write wakes
+// the waiters once the copy is done and the lock is free.
 int32_t cs_ring_write(void* h, const void* re, const void* im,
                       int64_t n) {
     Ring* r = (Ring*)h;
-    std::lock_guard<std::mutex> lock(r->mu);
-    if (r->size + n > r->cap) {
-        r->dropped += n;
-        return 0;
+    {
+        std::lock_guard<std::mutex> lock(r->mu);
+        if (r->size + n > r->cap) {
+            r->dropped += n;
+            return 0;
+        }
+        ring_copy(r, (r->tail + r->size) % r->cap, n, (uint8_t*)re,
+                  (uint8_t*)im, true);
+        r->size += n;
     }
-    ring_copy(r, (r->tail + r->size) % r->cap, n, (uint8_t*)re,
-              (uint8_t*)im, true);
-    r->size += n;
+    r->readable.notify_all();
     return 1;
 }
 
-// Blocking-read analog: returns n samples only when available (else 0) —
-// the consumer polls at block cadence like the compiled pipeline does.
+// Copies n samples out when that many are readable (else 0), without
+// waiting: a reader that wants to sleep until then calls cs_ring_wait.
 int32_t cs_ring_read(void* h, void* re, void* im, int64_t n) {
     Ring* r = (Ring*)h;
     std::lock_guard<std::mutex> lock(r->mu);
@@ -177,6 +189,28 @@ int32_t cs_ring_read(void* h, void* re, void* im, int64_t n) {
         r->busy += n;           // freed with the held span before it
     }
     return 1;
+}
+
+// Sleep until n samples are readable, timeout_us microseconds pass or
+// cs_ring_wake is called; 1 if n samples are readable then, else 0.
+int32_t cs_ring_wait(void* h, int64_t n, int64_t timeout_us) {
+    Ring* r = (Ring*)h;
+    std::unique_lock<std::mutex> lock(r->mu);
+    const int64_t wakes = r->wakes;
+    r->readable.wait_for(
+        lock, std::chrono::microseconds(std::max<int64_t>(timeout_us, 0)),
+        [&] { return r->size - r->busy >= n || r->wakes != wakes; });
+    return r->size - r->busy >= n;
+}
+
+// Release every cs_ring_wait in progress, whatever the ring holds.
+void cs_ring_wake(void* h) {
+    Ring* r = (Ring*)h;
+    {
+        std::lock_guard<std::mutex> lock(r->mu);
+        ++r->wakes;
+    }
+    r->readable.notify_all();
 }
 
 // The frame holding the next n readable samples, held until released;

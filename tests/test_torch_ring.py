@@ -1,11 +1,14 @@
 """The port's framed sample ring (``cubicsdr_tpu_torch/native``) on both
 backends, the native library and the numpy fallback: frames in the
 storage, reads and writes across frame and wrap boundaries, blocks handed
-out in place (``acquire``/``release``) and the room they hold."""
+out in place (``acquire``/``release``) and the room they hold, and the
+wait for a readable block (``wait_readable``/``wake``)."""
 
 from __future__ import annotations
 
 import collections
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -215,3 +218,80 @@ def test_storage_and_frame_are_checked(backend):
     store = np.zeros((6, 2, 8), np.int16)
     ring = SampleRing(48, np.int16, frame=8, storage=store)
     assert ring.storage is store
+
+
+def _waiter(ring, n, timeout):
+    """A thread waiting on ``ring``; its result and the time it returned
+    go into the returned list."""
+    out, started = [], threading.Event()
+
+    def run():
+        started.set()
+        ok = ring.wait_readable(n, timeout)
+        out.extend((ok, time.monotonic()))
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    assert started.wait(10)
+    return t, out
+
+
+def test_wait_readable_returns_at_once_when_the_block_is_there(backend):
+    ring, _ = _ring(np.int16)
+    assert ring.write(*_block(F + 3, np.int16, 0))
+    t0 = time.monotonic()
+    assert ring.wait_readable(F, 5.0)
+    assert ring.wait_readable(F + 3, 5.0)
+    assert time.monotonic() - t0 < 1.0
+    assert not ring.wait_readable(F + 4, 0.0)
+
+
+def test_a_write_from_another_thread_ends_the_wait(backend):
+    """A wait on an empty ring returns True within 50 ms of the write
+    that makes the block readable; a write of part of it does not end
+    the wait."""
+    ring, _ = _ring(np.int8)
+    t, out = _waiter(ring, F, 10.0)
+    time.sleep(0.02)
+    assert ring.write(*_block(F - 1, np.int8, 0))
+    time.sleep(0.02)
+    assert t.is_alive() and not out
+    assert ring.write(*_block(1, np.int8, F - 1))
+    wrote = time.monotonic()
+    t.join(10)
+    assert not t.is_alive()
+    assert out[0] is True and out[1] - wrote < 0.05
+
+
+def test_wait_readable_times_out_on_an_empty_ring(backend):
+    ring, _ = _ring(np.float32)
+    t0 = time.monotonic()
+    assert not ring.wait_readable(F, 0.05)
+    assert 0.04 <= time.monotonic() - t0 < 1.0
+
+
+def test_wake_releases_a_waiter_early(backend):
+    """``wake()`` ends a wait long before its timeout; the ring still
+    lacks the block, so the wait returns False."""
+    ring, _ = _ring(np.int16)
+    t, out = _waiter(ring, F, 10.0)
+    time.sleep(0.02)
+    ring.wake()
+    woke = time.monotonic()
+    t.join(10)
+    assert not t.is_alive()
+    assert out[0] is False and out[1] - woke < 1.0
+
+
+def test_a_waiter_leaves_other_threads_running(backend):
+    """While one thread waits on the ring, this one runs Python code: the
+    wait does not hold the interpreter lock."""
+    ring, _ = _ring(np.int16)
+    t, out = _waiter(ring, F, 2.0)
+    spins, t0 = 0, time.monotonic()
+    while time.monotonic() - t0 < 0.2:
+        spins += 1
+    assert t.is_alive() and not out, "the wait held the interpreter lock"
+    assert spins > 1000
+    assert ring.write(*_block(F, np.int16, 0))
+    t.join(10)
+    assert out[0] is True

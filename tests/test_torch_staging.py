@@ -1,11 +1,15 @@
 """The live loop's staging (``cubicsdr_tpu_torch/app/runner.py``): the
-ring in frames of one block, the held spans' release, and on the card
+ring in frames of one block, the held spans' release, the starved
+loop's wait on the ring when it lacks a block (woken by the write, by
+``stop()`` and by a format swap), and on the card
 (marked ``card``; run with ``python -m pytest tests/test_torch_staging.py
 -m card`` on a machine with a GPU) each block copied to the device
 straight out of its pinned ring frame. No JAX here."""
 
 from __future__ import annotations
 
+import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -13,6 +17,7 @@ import pytest
 import torch
 
 import cubicsdr_tpu_torch.receiver as T
+from cubicsdr_tpu_torch.app import runner as R
 from cubicsdr_tpu_torch.app.runner import LiveReceiver
 from cubicsdr_tpu_torch.utils.soak import join_prewarms
 
@@ -20,20 +25,48 @@ FS = 1_000_000
 L = 16750
 
 
-def build(device="cpu"):
+def build(device="cpu", block_len=L):
     mgr = T.DemodulatorMgr()
     mgr.new_demodulator(100e6 + 200e3, "FM", 200000)
     specs, keyed = T.plan_from_manager(mgr)
-    rx = T.ReceiverPipeline(FS, specs, block_len=L, use_kernels=False,
-                            device=device)
+    rx = T.ReceiverPipeline(FS, specs, block_len=block_len,
+                            use_kernels=False, device=device)
     return rx, T.controls_from_manager(mgr, rx, keyed, 100e6)
 
 
-def blocks(n, seed=0):
-    """Planes [2, L] of float32 noise, one per block."""
+def blocks(n, seed=0, block_len=L):
+    """Planes [2, block_len] of float32 noise, one per block."""
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((2, L)).astype(np.float32)
+    return [rng.standard_normal((2, block_len)).astype(np.float32)
             for _ in range(n)]
+
+
+def in_thread(fn):
+    """Run ``fn`` on a daemon thread; its result lands in the dict."""
+    res = {}
+    t = threading.Thread(target=lambda: res.setdefault("n", fn()),
+                         daemon=True)
+    t.start()
+    return t, res
+
+
+def until(cond, timeout=10.0):
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < timeout, "timed out"
+        time.sleep(0.002)
+
+
+def starved(lr):
+    """The loop has begun to wait on the ring for a block."""
+    return lr.metrics.counters.get("starved_polls", 0) > 0
+
+
+@pytest.fixture
+def long_slice(monkeypatch):
+    """Waits on the ring that only a wake or a write can end within a
+    test's time: what ends them early is the wake, not the slice."""
+    monkeypatch.setattr(R, "WAIT_SLICE_S", 5.0)
 
 
 @pytest.mark.parametrize("seconds", [0.0, 0.0671, 0.37, 2.0])
@@ -129,3 +162,98 @@ def test_card_stages_each_block_straight_from_its_pinned_frame():
     assert len(fed) == 3
     for p, b in zip(fed, src):
         np.testing.assert_array_equal(p, b)
+
+
+def test_stop_during_a_starved_wait_returns_at_once(long_slice):
+    """The loop sleeps on an empty ring; ``stop()`` wakes it within a
+    second, ends the loop and leaves no box pending."""
+    rx, ctl = build()
+    lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256)
+    t, res = in_thread(lr.run_blocks)
+    until(lambda: starved(lr))
+    time.sleep(0.05)                    # into the ring's wait
+    pool = lr._stage_pool
+    t0 = time.monotonic()
+    lr.stop()
+    t.join(1.0)
+    assert time.monotonic() - t0 < 1.0
+    assert not t.is_alive() and res["n"] == 0
+    assert lr._staged is None and not pool._t.is_alive()
+    assert lr.metrics.counters["starved_polls"] == 1
+    assert "ring_wakes" not in lr.metrics.counters
+
+
+def test_a_format_swap_during_a_starved_wait_stages_from_the_new_ring(
+        long_slice):
+    """A swap to another block length retires the ring the loop waits
+    on; the loop moves to the new ring at once, and the block written
+    there is staged and run through the new plan, none dropped."""
+    rx, ctl = build()
+    L2 = 15000
+    rx2, ctl2 = build(block_len=L2)
+    got = []
+    lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256,
+                      on_block=got.append)
+    t, res = in_thread(lambda: lr.run_blocks(max_blocks=1))
+    until(lambda: starved(lr))
+    time.sleep(0.05)                    # into the ring's wait
+    old = lr.ring
+    lr.swap_pipeline(rx2, ctl2)
+    assert lr.ring is not old and lr.ring.frame == L2
+    (b,) = blocks(1, block_len=L2)
+    assert lr.ring.write(b[0], b[1])
+    t.join(4)
+    assert not t.is_alive() and res["n"] == 1 and len(got) == 1
+    st = lr.metrics.stats["pipeline"]
+    assert (st.samples_in, st.samples_dropped) == (L2, 0)
+    assert lr.metrics.counters["starved_polls"] == 1
+    assert lr.metrics.counters["ring_wakes"] == 1
+    assert lr.ring.readable == 0
+    lr.stop()
+
+
+def test_run_blocks_without_wait_returns_on_an_empty_ring(long_slice):
+    """``wait=False`` returns as soon as the ring lacks a block, waiting on
+    nothing; a bounded waiting call leaves no lookahead for a block the
+    ring does not hold, so nothing waits on after it either."""
+    rx, ctl = build()
+    lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256)
+    t0 = time.monotonic()
+    assert lr.run_blocks(wait=False) == 0
+    assert time.monotonic() - t0 < 1.0
+    assert "starved_polls" not in lr.metrics.counters
+    (b,) = blocks(1)
+    assert lr.ring.write(b[0], b[1])
+    assert lr.run_blocks(max_blocks=1) == 1
+    assert lr._staged is None
+    t0 = time.monotonic()
+    assert lr.run_blocks(wait=False) == 0
+    assert time.monotonic() - t0 < 1.0
+    assert "starved_polls" not in lr.metrics.counters
+    lr.stop()
+
+
+def test_a_paced_source_waits_once_per_gap():
+    """Each block written 30 ms after the block before it reached
+    ``on_block``, as a radio delivers them to a loop that keeps up: at
+    most two starved waits per block, and a write ends the wait in every
+    gap. The loop finishes the block in hand before it waits: else no
+    block would follow it."""
+    n = 5
+    delivered = threading.Semaphore(0)
+
+    def paced():
+        for i, b in enumerate(blocks(n)):
+            if i and not delivered.acquire(timeout=30):
+                return                  # block i - 1 never reached on_block
+            time.sleep(0.03)
+            yield b
+    rx, ctl = build()
+    lr = LiveReceiver(rx, ctl, paced(), waterfall_fft=256,
+                      on_block=lambda r: delivered.release())
+    lr.start_producer()
+    assert lr.run_blocks() == n
+    lr.stop()
+    c = lr.metrics.counters
+    assert c["starved_polls"] <= 2 * n
+    assert c["ring_wakes"] >= n - 1

@@ -187,14 +187,27 @@ def test_the_plan_s_pfb_form_and_the_demods_fanned_out(channels, kernels,
 
 
 def test_starved_polls_count_the_consumer_waits():
+    """Each block written 30 ms after the block before it reached
+    ``on_block``: the loop waits on the ring once per gap (not once per
+    millisecond), and a write ends each wait."""
+    delivered = threading.Semaphore(0)
+
     def slow():
-        for b in synth_blocks(3):
+        for i, b in enumerate(synth_blocks(3)):
+            if i and not delivered.acquire(timeout=30):
+                return
             time.sleep(0.03)
             yield b
-    lr, _ = run_loop(slow(), 3)
-    assert lr.metrics.counters["starved_polls"] >= 5
-    assert lr.metrics.snapshot()["counters"]["starved_polls"] \
-        == lr.metrics.counters["starved_polls"]
+    rx, ctl = build(T)
+    lr = LiveReceiver(rx, ctl, slow(), waterfall_fft=256,
+                      on_block=lambda r: delivered.release())
+    lr.start_producer()
+    assert lr.run_blocks(max_blocks=3) == 3
+    lr.stop()
+    c = lr.metrics.snapshot()["counters"]
+    assert c == dict(lr.metrics.counters)
+    assert 2 <= c["starved_polls"] <= 2 * 3
+    assert 2 <= c["ring_wakes"] <= c["starved_polls"]
 
 
 def test_the_store_keeps_its_capacity_and_drops_the_oldest():
