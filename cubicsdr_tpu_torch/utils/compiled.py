@@ -28,9 +28,9 @@ buffers and copying the final state back into the state buffers inside
 the graph. A call then copies its inputs and replays the next slot's
 graph. A capture fault raises; there is no eager fallback. The capture
 runs with ``capture_error_mode="thread_local"``: other threads may use
-the card meanwhile (the live loop's staging worker copies the next block
-to the device; a control thread builds a plan; the consumer replays
-while a zoom level builds on a background thread), but none may
+the card meanwhile (a control-plane thread builds a plan while the live
+loop's consumer stages and replays blocks; the consumer replays while a
+zoom level builds on the zoom view's prewarm thread), but none may
 synchronise the whole device: a device-wide synchronisation, which
 ``torch.cuda.graph``'s entry makes (it also empties the caching
 allocators, whose frees synchronise) and so do the build's own laps,

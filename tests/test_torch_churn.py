@@ -4,8 +4,8 @@ package's tests/test_churn.py:51-230, on the port's ``WebViewer`` and
 adversary).
 
 The compiled step owns static state, input and output buffers, and a
-plan rebuild installs a (possibly cached) step while the staging worker
-copies the next block: every control/consumer race is a potential
+plan rebuild installs a (possibly cached) step while the consumer
+stages the next block: every control/consumer race is a potential
 overwrite of a buffer still in use. A second thread hammers the REST
 control surface (add/remove demods, retunes, modem swaps, bandwidth
 edits, recording toggles, zoom, checkpoint/restore, audio routing,

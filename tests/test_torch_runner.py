@@ -31,7 +31,7 @@ from cubicsdr_tpu.ops.planar import PLANAR as JPLANAR  # noqa: E402
 import cubicsdr_tpu.receiver as J  # noqa: E402
 
 import cubicsdr_tpu_torch.receiver as T  # noqa: E402
-from cubicsdr_tpu_torch.app.runner import LiveReceiver, _Stager  # noqa: E402
+from cubicsdr_tpu_torch.app.runner import LiveReceiver  # noqa: E402
 from cubicsdr_tpu_torch.ops.planar import PC  # noqa: E402
 from cubicsdr_tpu_torch.utils.interop import live_state_from_jax  # noqa: E402
 
@@ -239,10 +239,25 @@ def test_complex64_live_receiver_matches_jax(tmp_path):
     assert counts(lp.metrics.snapshot()) == counts(lj.metrics.snapshot())
 
 
+def after_next_stage(lr, act):
+    """Make ``lr``'s next stage that takes a block call ``act`` between
+    that stage and the block's dispatch, on the consumer, once."""
+    stage = lr._stage_block
+
+    def stage_then_act():
+        blk = stage()
+        if blk is not None:
+            lr._stage_block = stage
+            act()
+        return blk
+    lr._stage_block = stage_then_act
+
+
 def test_planar_complex_swap_mid_stream():
     """A planar receiver swapped to a complex64 plan (two demods) and back
     while its producer runs: each step sees blocks only in its own
-    representation (the block staged before a swap included), the ring
+    representation (a block staged before a swap, which lands between
+    the block's stage and its dispatch, included), the ring
     drops nothing, ``on_block`` sees each plan's shapes, the zoom view
     follows; raw cs16 ingest into a complex64 plan is refused."""
     rx_p, ctl_p = build(T)
@@ -261,10 +276,11 @@ def test_planar_complex_swap_mid_stream():
     lr.set_zoom(200e3, 500_000)
     lr.start_producer()
     assert lr.run_blocks(max_blocks=4) == 4
-    assert lr._staged is not None          # a block staged across the swap
-    lr.swap_pipeline(rx_c, ctl_c)
-    assert not lr.planar and not lr.zoom.planar
+    # Block 5 is staged under the planar plan; the swap lands before its
+    # dispatch, so it reaches the complex64 step.
+    after_next_stage(lr, lambda: lr.swap_pipeline(rx_c, ctl_c))
     assert lr.run_blocks(max_blocks=4) == 4
+    assert not lr.planar and not lr.zoom.planar
     lr.swap_pipeline(rx_p, ctl_p)
     assert lr.planar and lr.zoom.planar
     assert lr.run_blocks() == 4
@@ -329,8 +345,8 @@ def test_set_source_swaps_the_producer():
 
 def test_profile_trace_writes_a_trace(tmp_path):
     """The webview's ``profile`` action's trace: the profiler's ops, and
-    the live loop's spans of every thread (producer, staging worker,
-    consumer) on rows of their own."""
+    the live loop's spans (producer, staging, consumer) on rows of their
+    own."""
     import json
 
     from cubicsdr_tpu_torch.app.runner import BLOCK_SPANS
@@ -365,16 +381,6 @@ def test_profile_trace_writes_a_trace(tmp_path):
     assert max(abs(a - b) for a, b in zip(rows, ranges)) < 50
 
 
-def test_stager_submit_after_shutdown_resolves():
-    pool = _Stager()
-    pool.shutdown()
-    box = pool.submit(lambda: 1 / 0)
-    done = threading.Event()
-    threading.Thread(target=lambda: (box.result(), done.set()),
-                     daemon=True).start()
-    assert done.wait(10), "a box submitted after shutdown never resolved"
-
-
 def _fill(lr, n):
     for b in synth_blocks(n):
         assert lr.ring.write(np.ascontiguousarray(b.real, np.float32),
@@ -382,32 +388,38 @@ def _fill(lr, n):
 
 
 def test_run_blocks_after_stop_does_not_block():
-    """The lookahead submit lands after stop() shut the staging worker
-    down; a later run_blocks on the same receiver must not wait forever on
-    that box (run under its own timeout so a regression fails)."""
+    """A ``stop()`` from another thread lands during a bounded run,
+    between a block's stage and its dispatch; a later run_blocks on the
+    same receiver runs its next block and waits on nothing the stopped
+    run left (run under its own timeout so a regression fails)."""
     rx, ctl = build(T)
     lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256)
     _fill(lr, 2)
-    assert lr.run_blocks(max_blocks=1, wait=False) == 1
-    pool = lr._stage_pool
-    lr.stop()
-    lr._staged = pool.submit(lr._stage_block)      # lost the race
+
+    def stop_elsewhere():
+        t = threading.Thread(target=lr.stop, daemon=True)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+    after_next_stage(lr, stop_elsewhere)
+    assert lr.run_blocks(max_blocks=2, wait=False) == 1
+    assert lr.ring.readable == L                # block 2 left in the ring
     lr._stop.clear()                    # a later run on the same receiver
-    _fill(lr, 1)
     res = {}
     t = threading.Thread(target=lambda: res.setdefault(
         "n", lr.run_blocks(max_blocks=1, wait=False)), daemon=True)
     t.start()
     t.join(timeout=60)
-    assert not t.is_alive(), "run_blocks blocked on an orphaned box"
-    assert res["n"] == 1
+    assert not t.is_alive(), "run_blocks blocked after a stop"
+    assert res["n"] == 1 and lr.ring.readable == 0
     lr.stop()
 
 
 def test_rate_only_swap_drops_stale_staged_block():
     """A swap that changes the sample rate but keeps block_len rebuilds
-    the ring; the block staged from the old ring must be dropped, not run
-    through the new plan."""
+    the ring; a block staged from the old ring, the swap landing between
+    its stage and its dispatch, must be dropped, not run through the new
+    plan."""
     rx1, ctl1 = build(T)
     rx2 = T.ReceiverPipeline(1_200_000, rx1.groups, block_len=15000,
                              use_kernels=False, device="cpu")
@@ -419,13 +431,15 @@ def test_rate_only_swap_drops_stale_staged_block():
     for _ in range(2):
         lr.ring.write(z, z)
     assert lr.run_blocks(max_blocks=1, wait=False) == 1
-    assert lr._staged.result() is not None      # block 2 is staged
-    lr.swap_pipeline(rx2, ctl1)
-    lr.ring.write(z, z)                         # one block in the new ring
+
+    def swap():                         # block 2 is staged
+        lr.swap_pipeline(rx2, ctl1)
+        lr.ring.write(z, z)                     # one block in the new ring
+    after_next_stage(lr, swap)
     assert lr.run_blocks(max_blocks=1, wait=False) == 1
     snap = lr.metrics.snapshot()["pipeline"]
     assert snap["dropped"] == 15000 and snap["blocks"] == 3
-    assert lr.ring.fill == 0                    # the new block ran
+    assert lr.pipeline is rx2 and lr.ring.fill == 0     # the new block ran
     lr.stop()
 
 

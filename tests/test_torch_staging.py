@@ -1,7 +1,8 @@
 """The live loop's staging (``cubicsdr_tpu_torch/app/runner.py``): the
-ring in frames of one block, the held spans' release, the starved
-loop's wait on the ring when it lacks a block (woken by the write, by
-``stop()`` and by a format swap), and on the card
+ring in frames of one block, the held spans' release, every block staged
+on the consumer, the starved loop's wait on the ring when it lacks a
+block (woken by the write, by ``stop()`` and by a format swap), and on
+the card
 (marked ``card``; run with ``python -m pytest tests/test_torch_staging.py
 -m card`` on a machine with a GPU) each block copied to the device
 straight out of its pinned ring frame. No JAX here."""
@@ -166,19 +167,19 @@ def test_card_stages_each_block_straight_from_its_pinned_frame():
 
 def test_stop_during_a_starved_wait_returns_at_once(long_slice):
     """The loop sleeps on an empty ring; ``stop()`` wakes it within a
-    second, ends the loop and leaves no box pending."""
+    second and ends the loop, which leaves no thread of its own."""
     rx, ctl = build()
     lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256)
+    before = set(threading.enumerate())
     t, res = in_thread(lr.run_blocks)
     until(lambda: starved(lr))
     time.sleep(0.05)                    # into the ring's wait
-    pool = lr._stage_pool
     t0 = time.monotonic()
     lr.stop()
     t.join(1.0)
     assert time.monotonic() - t0 < 1.0
     assert not t.is_alive() and res["n"] == 0
-    assert lr._staged is None and not pool._t.is_alive()
+    assert set(threading.enumerate()) <= before
     assert lr.metrics.counters["starved_polls"] == 1
     assert "ring_wakes" not in lr.metrics.counters
 
@@ -214,22 +215,86 @@ def test_a_format_swap_during_a_starved_wait_stages_from_the_new_ring(
 
 def test_run_blocks_without_wait_returns_on_an_empty_ring(long_slice):
     """``wait=False`` returns as soon as the ring lacks a block, waiting on
-    nothing; a bounded waiting call leaves no lookahead for a block the
-    ring does not hold, so nothing waits on after it either."""
+    nothing; a bounded waiting call leaves unread the block it did not
+    run and no thread of its own, so nothing waits on after it either."""
     rx, ctl = build()
     lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256)
     t0 = time.monotonic()
     assert lr.run_blocks(wait=False) == 0
     assert time.monotonic() - t0 < 1.0
     assert "starved_polls" not in lr.metrics.counters
-    (b,) = blocks(1)
-    assert lr.ring.write(b[0], b[1])
+    for b in blocks(2):
+        assert lr.ring.write(b[0], b[1])
+    before = set(threading.enumerate())
     assert lr.run_blocks(max_blocks=1) == 1
-    assert lr._staged is None
+    assert lr.ring.readable == L
+    assert set(threading.enumerate()) <= before
+    assert lr.run_blocks(wait=False) == 1       # the block it left
     t0 = time.monotonic()
     assert lr.run_blocks(wait=False) == 0
     assert time.monotonic() - t0 < 1.0
     assert "starved_polls" not in lr.metrics.counters
+    lr.stop()
+
+
+def collect(into):
+    """An ``on_block`` that keeps a host copy of each block's outputs (a
+    block's pull is reused by later blocks)."""
+    def on_block(r):
+        into.append((r["seq"], r["mix"].copy(),
+                     [(g["level"].copy(), g["iq"].re.numpy().copy(),
+                       g["iq"].im.numpy().copy()) for g in r["groups"]]))
+    return on_block
+
+
+def test_a_closed_loop_stages_every_block_on_the_consumer(monkeypatch):
+    """With six blocks already in the ring (a closed loop: the next block
+    is always there), every block is staged on the thread that calls
+    ``run_blocks``, which starts no thread; the outputs are those of six
+    one-block calls on a fresh receiver fed the same blocks."""
+    src = blocks(6)
+    runs = []
+    for calls in ((None,), (1,) * 6):
+        rx, ctl = build()
+        got = []
+        lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256,
+                          on_block=collect(got))
+        for b in src:
+            assert lr.ring.write(b[0], b[1])
+        stagers, started = [], []
+        stage = lr._stage_block
+        lr._stage_block = lambda: (stagers.append(threading.get_ident()),
+                                   stage())[1]
+        start = threading.Thread.start
+        monkeypatch.setattr(threading.Thread, "start", lambda t: (
+            started.append(t.name), start(t))[1])
+        assert sum(lr.run_blocks(max_blocks=k, wait=False)
+                   for k in calls) == 6
+        monkeypatch.setattr(threading.Thread, "start", start)
+        assert stagers and set(stagers) == {threading.get_ident()}
+        assert started == []
+        assert lr.ring.readable == 0
+        runs.append((got, lr.waterfall.buffer.copy()))
+        lr.stop()
+    (a, wa), (b, wb) = runs
+    assert [r[0] for r in a] == [r[0] for r in b] == list(range(6))
+    for (_, mix_a, ga), (_, mix_b, gb) in zip(a, b):
+        np.testing.assert_array_equal(mix_a, mix_b)
+        for x, y in zip(ga, gb):
+            for u, v in zip(x, y):
+                np.testing.assert_array_equal(u, v)
+    np.testing.assert_array_equal(wa, wb)
+
+
+def test_a_bounded_call_takes_only_the_blocks_it_runs():
+    """Nothing is staged ahead or carried across calls: a call bounded to
+    one block leaves the other two in the ring."""
+    rx, ctl = build()
+    lr = LiveReceiver(rx, ctl, iter(()), waterfall_fft=256)
+    for b in blocks(3):
+        assert lr.ring.write(b[0], b[1])
+    assert lr.run_blocks(max_blocks=1) == 1
+    assert lr.ring.readable == 2 * L
     lr.stop()
 
 
